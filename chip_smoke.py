@@ -5,24 +5,38 @@ Run from the root of a checkout on a machine with one CUDA card:
 
     python3 chip_smoke.py
 
-It builds the port's four hand-written CUDA kernels from ``src/repro_torch/
+It builds the port's five hand-written CUDA kernels from ``src/repro_torch/
 csrc`` (one ``nvcc`` per source, in parallel, into ``build/``), then:
 
 1. prints the card's name and power limit;
-2. drives the port's main path, ``ABTree.apply_round`` in elim mode on one
+2. drives the port's tree path, ``ABTree.apply_round`` in elim mode on one
    tree at the paper's b = 11 with int64 keys and values: prefill of half
    the key range in insert rounds of 65,536 lanes, then warm-up and measured
    mixed rounds of 16,384 lanes (Zipf(1.0) keys; 45% insert, 45% delete,
    5% find, 5% range with span uniform in [1, 64]; scan cap 128).  Every
    round is checked lane for lane against ``DictOracle.apply_mixed_round``
    and the tree against ``check_invariants`` at the end.  The launch count
-   of every kernel is zeroed before the main path and read after it;
-3. replays one main-path call of each kernel: kernel and plain PyTorch
-   version on the same CUDA tensors must agree bit for bit; both are timed
-   with CUDA events, beside the least time the card needs to move the
-   call's bytes (3.35 TB/s) and, for range_scan, ``torch.topk`` over the
-   masked keys as the nearest library yardstick;
-4. prints ``{"ok": true, "device": {...}}`` as its last line.
+   of every kernel is zeroed before this path and read after it;
+3. drives the serving path: ``ServeEngine`` on qwen2-0.5b at its full
+   width and depth (24 layers, bf16 compute over fp32 weights made from the
+   seed), max_batch 8, s_max 1024, 32 KV pages; 16 requests of 512-token
+   prompts (two full prefix blocks), 70% of them one hot prompt, 32 new
+   tokens each; run serial, then pipelined, with the launch counts zeroed
+   before the serial run and read after the pipelined one.  Both runs must
+   give every request 32 tokens and the same tokens; both indexes must pass
+   ``check_invariants`` and hold what a ``DictOracle`` fed the same
+   publish / evict / sweep calls holds (every lookup and sweep is checked
+   against it as it happens); the prefix cache must be hit.  A third, short
+   run with the phase tracer on gives the per-tick breakdown;
+4. replays one main-path call of each kernel: kernel and plain PyTorch
+   version on the same CUDA tensors must agree (the tree kernels bit for
+   bit; decode attention within 2 ulps of its dtype at the output's largest
+   magnitude, on the serve phase's tensors and on seeded random ones of the
+   same shapes); both are timed, beside the least time the card needs for
+   the call (its bytes at 3.35 TB/s or its operations at the peak for their
+   type, whichever is longer) and, where one PyTorch call computes a
+   comparable function, that call's time;
+5. prints ``{"ok": true, "device": {...}}`` as its last line.
 
 Any failed check raises, so the script exits non-zero.  Without a CUDA card,
 or without the repository's ``src/repro_torch`` beside it, it exits 2 and
@@ -30,6 +44,7 @@ prints no result.
 """
 from __future__ import annotations
 
+import collections
 import json
 import subprocess
 import sys
@@ -48,6 +63,20 @@ WARMUP, ROUNDS, TRACED_ROUNDS, RECORDER_OFF_ROUNDS = 3, 20, 3, 5
 # PERF.md.
 KEY_RANGE = 2_000_000
 SEED = 0
+TREE_KERNELS = ("descend_probe", "frontier_compact", "elim_combine", "range_scan")
+# serve phase: qwen2-0.5b at full width and depth
+SERVE_ARCH = "qwen2-0.5b"
+SERVE_ENGINE = dict(max_batch=8, s_max=1024, n_pages=32)
+SERVE_REQUESTS, SERVE_PROMPT, SERVE_MAX_NEW, SERVE_HOT_FRAC = 16, 512, 32, 0.7
+TRACED_REQUESTS, TRACED_MAX_NEW = 2, 8
+STEP_TIMING_STEPS = 20
+# B7's limit against its plain version, in ulps of the output's dtype at the
+# output's largest magnitude: both accumulate in f32 and round once, so they
+# differ by summation order and that one rounding
+DECODE_ULPS = 2
+# H100 SXM peak for the operands' type (dense): bf16 on the tensor cores,
+# f32 outside them
+OPS_PER_S = {"torch.bfloat16": 989e12, "torch.float32": 67e12}
 
 
 def log(msg: str) -> None:
@@ -126,7 +155,7 @@ def run_main_path(torch, core, lib, zipf_keys):
     prefill_s = time.perf_counter() - t0
 
     m = tree.metrics
-    counters = {n: lib.COUNTERS[n] for n in lib.SOURCES}
+    counters = {n: lib.COUNTERS[n] for n in TREE_KERNELS}
     recorded = {}
 
     def drive(n_rounds, name, record_last=False):
@@ -212,6 +241,294 @@ def run_main_path(torch, core, lib, zipf_keys):
 
 
 # ----------------------------------------------------------------------------
+# serve path
+# ----------------------------------------------------------------------------
+
+
+def serve_requests(vocab: int):
+    """(rid, prompt, is_hot) from the seed: ``SERVE_HOT_FRAC`` of them share
+    one hot prompt (the JAX launcher's ``--hot-frac``)."""
+    rng = np.random.default_rng(SEED)
+    hot = rng.integers(0, vocab, SERVE_PROMPT).tolist()
+    out = []
+    for rid in range(SERVE_REQUESTS):
+        if rng.random() < SERVE_HOT_FRAC:
+            out.append((rid, list(hot), True))
+        else:
+            out.append((rid, rng.integers(0, vocab, SERVE_PROMPT).tolist(), False))
+    return out
+
+
+class IndexAudit:
+    """Mirrors every call an engine makes on its two indexes into a
+    ``DictOracle`` each, checks every lookup and sweep against it as it
+    happens, and times the index calls (each ends in a host copy of its
+    results, so its wall time covers its device work)."""
+
+    def __init__(self, eng, core):
+        self.core = core
+        self.seconds = 0.0
+        self.calls = collections.Counter()
+        self.seconds_by = collections.Counter()
+        self.oracles = {"prefix": core.DictOracle(), "sessions": core.DictOracle()}
+        for name, index in (("prefix", eng.index), ("sessions", eng.sessions)):
+            self._wrap(name, index)
+
+    def _timed(self, kind, fn, *args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        dt = time.perf_counter() - t0
+        self.seconds += dt
+        self.seconds_by[kind] += dt
+        self.calls[kind] += 1
+        return out
+
+    def _wrap(self, name, index):
+        core, oracle = self.core, self.oracles[name]
+        lookup, publish, evict = index.lookup_batch, index.publish_batch, index.evict_batch
+
+        def lookup_batch(hashes):
+            got = self._timed(f"{name}.lookup", lookup, hashes)
+            res, fnd, _ = oracle.apply_mixed_round([core.OP_FIND] * len(hashes), hashes, [0] * len(hashes))
+            want = [r if f else None for r, f in zip(res, fnd)]
+            if got != want:
+                raise AssertionError(f"{name} lookup {got} != oracle {want}")
+            return got
+
+        def publish_batch(keys, vals):
+            self._timed(f"{name}.publish", publish, keys, vals)
+            if keys:
+                oracle.apply_mixed_round([core.OP_INSERT] * len(keys), keys, vals)
+
+        def evict_batch(keys):
+            self._timed(f"{name}.evict", evict, keys)
+            if keys:
+                oracle.apply_mixed_round([core.OP_DELETE] * len(keys), keys, [0] * len(keys))
+
+        index.lookup_batch, index.publish_batch, index.evict_batch = lookup_batch, publish_batch, evict_batch
+        if hasattr(index, "evict_range"):
+            sweep = index.evict_range
+
+            def evict_range(lo, hi, cap=256):
+                got = self._timed(f"{name}.sweep", sweep, lo, hi, cap)
+                gone = sorted(k for k in oracle.d if lo <= k < hi)
+                want = [oracle.d.pop(k) for k in gone]
+                if got != want:
+                    raise AssertionError(f"sweep [{lo}, {hi}) {got} != oracle {want}")
+                return got
+
+            index.evict_range = evict_range
+
+    def check(self, eng):
+        for name, index in (("prefix", eng.index), ("sessions", eng.sessions)):
+            self.core.check_invariants(index.tree.state, index.tree.cfg)
+            if index.tree.items() != self.oracles[name].items():
+                raise AssertionError(f"{name} index contents differ from the oracle")
+
+
+def serve_run(torch, core, serve, cfg, params, device, *, pipelined: bool, n_requests: int,
+              max_new: int, tracer=None, on_stream_sync: bool = False):
+    """One engine run over the first ``n_requests`` requests.  With
+    ``on_stream_sync`` the serial run also waits for the model stream at the
+    end of each admission, so the tick splits into admission (index rounds
+    and prefill) and decode times; the tick's total is unchanged, since the
+    decode fence waits for the same work."""
+    eng = serve.ServeEngine(cfg, pipelined=pipelined, params=params, seed=SEED, device=device,
+                            **SERVE_ENGINE)
+    sync = torch.cuda.synchronize if device.type == "cuda" else (lambda: None)
+    audit = IndexAudit(eng, core)
+    timing = {"admit_s": 0.0, "retire_s": 0.0}
+    if on_stream_sync:
+        admit, retire = eng._admit, eng._retire
+
+        def timed_admit():
+            t0 = time.perf_counter()
+            admit()
+            if eng._stream is not None:
+                eng._stream.synchronize()
+            timing["admit_s"] += time.perf_counter() - t0
+
+        def timed_retire(slot):
+            t0 = time.perf_counter()
+            retire(slot)
+            timing["retire_s"] += time.perf_counter() - t0
+
+        eng._admit, eng._retire = timed_admit, timed_retire
+    if tracer is not None:
+        eng.tracer = tracer
+    reqs = serve_requests(cfg.vocab)[:n_requests]
+    for rid, prompt, _ in reqs:
+        eng.submit(serve.Request(rid=rid, prompt=prompt, max_new=max_new))
+    sync()
+    t0 = time.perf_counter()
+    done = eng.run_until_done(max_ticks=100_000)
+    sync()
+    wall = time.perf_counter() - t0
+    if sorted(r.rid for r in done) != [rid for rid, _, _ in reqs]:
+        raise AssertionError("serve: not every request completed")
+    for r in done:
+        if len(r.out) != max_new:
+            raise AssertionError(f"serve: request {r.rid} produced {len(r.out)} tokens")
+    audit.check(eng)
+    st = eng.stats()
+    tick = st["tick_latency"]
+    prefill_tokens = sum(len(p) - 1 for _, p, _ in reqs)
+    decode_tokens = eng.metrics.value("decode_tokens")
+    out = {
+        "pipelined": pipelined,
+        "requests": len(reqs),
+        "hot_requests": sum(hot for _, _, hot in reqs),
+        "wall_s": wall,
+        "ticks": st["ticks"],
+        "tick_ms_p50": tick["p50"] * 1e3,
+        "tick_ms_p99": tick["p99"] * 1e3,
+        "tick_ms_sum": tick["sum"] * 1e3,
+        "prefill_tokens": prefill_tokens,
+        "decode_tokens": decode_tokens,
+        "tokens_per_s": (prefill_tokens + decode_tokens) / wall,
+        "cache_hit_blocks": st["cache_hit_blocks"],
+        "admitted": eng.metrics.value("admitted"),
+        "retired": eng.metrics.value("retired"),
+        "index_calls": dict(audit.calls),
+        "index_s_by_call": dict(audit.seconds_by),
+        "index_rounds": int(eng.index.tree._rounds + eng.sessions.tree._rounds),
+        "index_s": audit.seconds,
+        "index_share_of_ticks": audit.seconds / tick["sum"] if tick["sum"] else 0.0,
+        "eliminated": int(st["eliminated"]),
+        "session_scans": st["session_scans"],
+    }
+    if pipelined:
+        frac = eng.metrics.histogram_summary("tick_overlap_frac")
+        out["tick_overlap_frac_mean"] = frac["sum"] / frac["count"] if frac["count"] else 0.0
+        out["tick_overlap_frac_max"] = frac["max"]
+    if on_stream_sync:
+        # admission = its index calls (lookups, publishes) + the prefill
+        # steps; decode = the rest of the ticks outside retirement
+        admit_index_s = sum(v for k, v in audit.seconds_by.items()
+                            if k.endswith((".lookup", ".publish")))
+        prefill_s = timing["admit_s"] - admit_index_s
+        decode_s = tick["sum"] - timing["admit_s"] - timing["retire_s"]
+        out.update(admit_s=timing["admit_s"], retire_s=timing["retire_s"],
+                   admit_index_s=admit_index_s, prefill_s=prefill_s, decode_s=decode_s,
+                   prefill_tokens_per_s=prefill_tokens / prefill_s,
+                   decode_tokens_per_s=decode_tokens / decode_s)
+    return eng, out, {r.rid: list(r.out) for r in done}
+
+
+def decode_step_timing(torch, backbone, eng):
+    """One fused decode step of the engine's model at full batch: wall time
+    per step as the engine issues them (host loop, one synchronize at the
+    end), and device time per step from a CUDA graph of the same steps
+    (host launch cost removed).  Their gap is the card's idle share while
+    the host issues a step.  Writes one cache column; run after serving."""
+    cfg, dev = eng.cfg, eng.device
+    tokens = torch.zeros(eng.max_batch, dtype=torch.int32, device=dev)
+    pos = eng.s_max - 2
+
+    def step():
+        backbone.forward_decode(eng.params, eng.cache, tokens, pos, cfg)
+
+    for _ in range(3):
+        step()
+    torch.cuda.synchronize(dev)
+    t0 = time.perf_counter()
+    for _ in range(STEP_TIMING_STEPS):
+        step()
+    torch.cuda.synchronize(dev)
+    wall_ms = (time.perf_counter() - t0) * 1e3 / STEP_TIMING_STEPS
+    device_ms = graph_ms(torch, step, iters=STEP_TIMING_STEPS, reps=3)
+    return {"steps": STEP_TIMING_STEPS, "kv_len": pos + 1, "wall_ms": wall_ms,
+            "device_ms": device_ms, "device_idle_share": 1.0 - device_ms / wall_ms}
+
+
+def run_serve_path(torch, core, lib, device, cfg):
+    """The serving path at full qwen2-0.5b: serial run, pipelined run (the
+    launch counts cover both), then a short traced run.  Returns the
+    summary and the arguments of the pipelined run's last decode-attention
+    launch."""
+    import repro_torch.serve as serve
+    from repro_torch.models import backbone
+    from repro_torch.models.params import count_params, init_params
+    from repro_torch.obs.tracer import Tracer
+
+    on_card = device.type == "cuda"
+    t0 = time.perf_counter()
+    params = init_params(backbone.model_spec(cfg), device, SEED)
+    if on_card:
+        torch.cuda.synchronize(device)
+        torch.cuda.reset_peak_memory_stats(device)
+    init_s = time.perf_counter() - t0
+    counters = {n: lib.counter(n) for n in lib.SOURCES}
+    attn = counters["decode_attention"]
+
+    lib.reset_counts()
+    t0 = time.perf_counter()
+    eng, serial, tokens_serial = serve_run(
+        torch, core, serve, cfg, params, device, pipelined=False, n_requests=SERVE_REQUESTS,
+        max_new=SERVE_MAX_NEW, on_stream_sync=True,
+    )
+    log(f"serve serial: {time.perf_counter() - t0:.1f}s, {serial['ticks']} ticks")
+    serial_launches = {n: c.launches for n, c in counters.items()}
+    del eng
+    attn.calls = collections.deque(maxlen=1)
+    t0 = time.perf_counter()
+    eng, piped, tokens_piped = serve_run(
+        torch, core, serve, cfg, params, device, pipelined=True, n_requests=SERVE_REQUESTS,
+        max_new=SERVE_MAX_NEW,
+    )
+    log(f"serve pipelined: {time.perf_counter() - t0:.1f}s, {piped['ticks']} ticks")
+    recorded = attn.calls[-1] if attn.calls else None
+    attn.calls = None
+    launches = {n: c.launches for n, c in counters.items()}
+    step = decode_step_timing(torch, backbone, eng) if on_card else None
+    del eng
+    piped_launches = {n: launches[n] - serial_launches[n] for n in launches}
+    for run, counts in (("serial", serial_launches), ("pipelined", piped_launches)):
+        missing = [n for n, c in counts.items() if c <= 0]
+        if missing:
+            raise AssertionError(f"serve {run}: kernels {missing} never launched")
+    if tokens_serial != tokens_piped:
+        raise AssertionError("serve: serial and pipelined runs gave different tokens")
+    for run in (serial, piped):
+        if run["cache_hit_blocks"] <= 0:
+            raise AssertionError("serve: the prefix cache was never hit")
+    peak = int(torch.cuda.max_memory_allocated(device)) if on_card else None
+
+    # a short traced run: per-tick span totals (the tracer fences every span)
+    tracer = Tracer()
+    eng, traced, _ = serve_run(
+        torch, core, serve, cfg, params, device, pipelined=False, n_requests=TRACED_REQUESTS,
+        max_new=TRACED_MAX_NEW, tracer=tracer,
+    )
+    del eng
+    spans = collections.defaultdict(float)
+    counts = collections.Counter()
+    for ev in tracer.events:
+        if ev["ph"] == "X":
+            spans[ev["name"]] += ev["dur"] / 1e3
+            counts[ev["name"]] += 1
+    summary = {
+        "config": {"arch": SERVE_ARCH, "layers": cfg.n_layers, "d_model": cfg.d_model,
+                   "heads": cfg.n_heads, "kv_heads": cfg.n_kv, "d_head": cfg.d_head,
+                   "d_ff": cfg.d_ff, "vocab": cfg.vocab, "dtype": cfg.dtype,
+                   "params": count_params(backbone.model_spec(cfg)), **SERVE_ENGINE,
+                   "requests": SERVE_REQUESTS, "prompt": SERVE_PROMPT, "max_new": SERVE_MAX_NEW,
+                   "hot_frac": SERVE_HOT_FRAC, "seed": SEED},
+        "param_init_s": init_s,
+        "serial": serial,
+        "pipelined": piped,
+        "launches": launches,
+        "launches_serial": serial_launches,
+        "launches_pipelined": piped_launches,
+        "max_memory_allocated": peak,
+        "decode_step": step,
+        "traced": {"requests": TRACED_REQUESTS, "max_new": TRACED_MAX_NEW,
+                   "ticks": traced["ticks"], "ms_total": dict(spans), "count": dict(counts)},
+    }
+    return summary, recorded
+
+
+# ----------------------------------------------------------------------------
 # kernels against their plain versions
 # ----------------------------------------------------------------------------
 
@@ -267,6 +584,15 @@ def max_abs_err(torch, got, want) -> float:
     return err
 
 
+def ulps_at_max(torch, want, n: int) -> float:
+    """``n`` ulps of ``want``'s dtype at ``max |want|``."""
+    top = float(want.abs().max())
+    if top == 0.0:
+        return 0.0
+    _, exp = np.frexp(top)  # top = m * 2**exp, 0.5 <= m < 1
+    return n * torch.finfo(want.dtype).eps * 2.0 ** (int(exp) - 1)
+
+
 def descend_bytes(torch, pool_keys, children, is_leaf, root, queries, max_height):
     """Bytes a descent + probe must move for these queries, each read once:
     per distinct internal row visited, its leaf flag and b-1 routers; one
@@ -305,23 +631,29 @@ def descend_bytes(torch, pool_keys, children, is_leaf, root, queries, max_height
     return pool + queries.numel() * (8 + 4 + 1 + 4 + 8) + s * 4
 
 
-def kernel_report(torch, mods, summary, recorded):
+def kernel_report(torch, mods, summary, recorded, serve_summary, serve_recorded):
     """Replay one main-path call per kernel against its plain version."""
-    td_kernel, td_ref, td_ops, ec_kernel, ec_ref, rs_kernel, rs_ref = mods
+    td_kernel, td_ref, td_ops, ec_kernel, ec_ref, rs_kernel, rs_ref, da_kernel, da_ref = mods
     rows = []
 
-    def entry(name, source, replaces, got, want, k_fn, p_fn, nbytes, shapes, lib_ms=None):
+    def entry(name, source, replaces, got, want, k_fn, p_fn, nbytes, shapes, lib_ms=None,
+              tol=0.0, launches=None, ops=0.0, ops_per_s=1.0, extra=None):
         err = max_abs_err(torch, got, want)
-        if err != 0.0:
-            raise AssertionError(f"{name}: kernel differs from its plain version (max |err| {err})")
+        if err > tol:
+            raise AssertionError(f"{name}: kernel differs from its plain version (max |err| {err} > {tol})")
         k_ms = graph_ms(torch, k_fn)
+        bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        ops_ms = ops / ops_per_s * 1e3
         rows.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
-            "launches": summary["launches"][name], "max_abs_err": err, "equal": True,
+            "launches": summary["launches"][name] if launches is None else launches,
+            "serve_launches": serve_summary["launches"][name],
+            "max_abs_err": err, "tolerance": tol, "equal": err == 0.0,
             "ms": k_ms, "kernel_ms": k_ms, "call_ms": time_ms(torch, k_fn, 200),
             "plain_ms": graph_ms(torch, p_fn), "plain_call_ms": time_ms(torch, p_fn, 20),
-            "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
-            "bytes": int(nbytes), "library_ms": lib_ms, "shapes": shapes,
+            "bound_ms": max(bytes_ms, ops_ms), "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+            "bytes": int(nbytes), "ops": int(ops), "library_ms": lib_ms, "shapes": shapes,
+            **(extra or {}),
         })
 
     # K1 descend_probe: the search phase's call (first of the round)
@@ -386,6 +718,42 @@ def kernel_report(torch, mods, summary, recorded):
         {"cand": list(ck.shape), "cap": cap},
         lib_ms=lib_ms,
     )
+    # B7 decode_attention: the serve path's last decode call, then seeded
+    # random q/k/v at the same shapes, where every live column's weight
+    # shows in every row of the output
+    q, k, v, kw = serve_recorded
+    kv_len, scale = kw["kv_len"], kw["sm_scale"]
+    b, h, d = q.shape
+    kh = k.shape[1]
+    gen = torch.Generator(device=q.device).manual_seed(SEED)
+    rq, rk, rv = (torch.randn(x.shape, generator=gen, device=q.device).to(x.dtype)
+                  for x in (q, k, v))
+    r_got = da_kernel.decode_attention_cuda(rq, rk, rv, kv_len, scale)
+    r_want = da_ref.decode_attention_ref(rq, rk, rv, kv_len, sm_scale=scale)
+    r_err, r_tol = max_abs_err(torch, (r_got,), (r_want,)), ulps_at_max(torch, r_want, DECODE_ULPS)
+    if r_err > r_tol:
+        raise AssertionError(
+            f"decode_attention: kernel differs from its plain version on random inputs "
+            f"(max |err| {r_err} > {r_tol}, max |want| {float(r_want.abs().max())})"
+        )
+    want = da_ref.decode_attention_ref(q, k, v, kv_len, sm_scale=scale)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    kv, vv = k[:, :, :kv_len], v[:, :, :kv_len]
+    lib_ms = graph_ms(torch, lambda: sdpa(q[:, :, None], kv, vv, enable_gqa=True))
+    entry(
+        "decode_attention", "src/repro_torch/csrc/decode_attention.cu",
+        "src/repro/kernels/decode_attention/kernel.py:72",
+        (da_kernel.decode_attention_cuda(q, k, v, kv_len, scale),), (want,),
+        lambda: da_kernel.decode_attention_cuda(q, k, v, kv_len, scale),
+        lambda: da_ref.decode_attention_ref(q, k, v, kv_len, sm_scale=scale),
+        2 * b * kh * kv_len * d * k.element_size() + 2 * q.numel() * q.element_size(),
+        {"q": list(q.shape), "cache": list(k.shape), "kv_len": kv_len, "dtype": str(q.dtype)},
+        lib_ms=lib_ms, tol=ulps_at_max(torch, want, DECODE_ULPS),
+        launches=serve_summary["launches"]["decode_attention"],
+        ops=4.0 * b * h * kv_len * d, ops_per_s=OPS_PER_S[str(q.dtype)],
+        extra={"max_abs_want": float(want.abs().max()), "random_max_abs_err": r_err,
+               "random_tolerance": r_tol, "random_max_abs_want": float(r_want.abs().max())},
+    )
     for row in rows:
         if row["launches"] <= 0:
             raise AssertionError(f"{row['name']}: never launched on the main path")
@@ -408,6 +776,7 @@ def main() -> int:
     import repro_torch.core as core
     from repro_torch.data.workloads import zipf_keys
     from repro_torch.kernels import _lib as lib
+    from repro_torch.kernels.decode_attention import kernel as da_kernel, ref as da_ref
     from repro_torch.kernels.elim_combine import kernel as ec_kernel, ref as ec_ref
     from repro_torch.kernels.range_scan import kernel as rs_kernel, ref as rs_ref
     from repro_torch.kernels.tree_descend import kernel as td_kernel, ops as td_ops, ref as td_ref
@@ -427,9 +796,20 @@ def main() -> int:
     summary, recorded = run_main_path(torch, core, lib, zipf_keys)
     print(json.dumps({"main_path": summary, "card": smi}), flush=True)
 
-    # 3. every kernel against its plain version at main-path shapes
+    # 3. the serving path at full width
+    torch.backends.cuda.matmul.allow_tf32 = False  # f32 products in full f32
+    torch.backends.cudnn.allow_tf32 = False
+    from repro_torch.configs import get_config
+
+    serve_summary, serve_recorded = run_serve_path(
+        torch, core, lib, torch.device("cuda"), get_config(SERVE_ARCH)
+    )
+    print(json.dumps({"serve_path": serve_summary, "card": smi}), flush=True)
+
+    # 4. every kernel against its plain version at main-path shapes
     rows = kernel_report(
-        torch, (td_kernel, td_ref, td_ops, ec_kernel, ec_ref, rs_kernel, rs_ref), summary, recorded
+        torch, (td_kernel, td_ref, td_ops, ec_kernel, ec_ref, rs_kernel, rs_ref, da_kernel, da_ref),
+        summary, recorded, serve_summary, serve_recorded,
     )
     print(json.dumps({"kernels": rows}), flush=True)
     print(smi, flush=True)

@@ -182,6 +182,13 @@ def _g(state: TreeState, ids: torch.Tensor) -> torch.Tensor:
     return ids.to(torch.int64) + base.view(base.shape + (1,) * (ids.dim() - 2))
 
 
+def _leaf_rows(state: TreeState, leaf_ids: torch.Tensor) -> torch.Tensor:
+    """Global rows of the search phase's leaf ids.  A lane whose descent
+    took a NULL child carries leaf id -1 (as in JAX); it names the scratch
+    row N-1, which JAX reaches by wrapping the negative index."""
+    return _g(state, torch.where(leaf_ids < 0, leaf_ids + state.keys.shape[1], leaf_ids))
+
+
 def _get(arr: torch.Tensor, rows: torch.Tensor, cols: Optional[torch.Tensor] = None):
     f = _flat(arr)
     return f[rows] if cols is None else f[rows, cols.to(torch.int64)]
@@ -252,7 +259,7 @@ def apply_net_ops(
     are sorted, so ops on one leaf are contiguous."""
     b = cfg.b
     scratch = state.keys.shape[1] - 1
-    gl = _g(state, leaf_ids)
+    gl = _leaf_rows(state, leaf_ids)
     gs = _base(state) + scratch  # (S, 1) scratch row per shard
 
     # deletes: blank the slot (no shifting), size -= 1.
@@ -796,7 +803,7 @@ class ABTree(RegistryBackedCounters):
     def __init__(self, cfg: TreeConfig = TreeConfig(), mode: str = "elim", *, device=None):
         if mode == "occ":
             raise NotImplementedError(
-                "mode='occ' is not ported yet (ROADMAP.md queue A, item 6: "
+                "mode='occ' is not ported yet (ROADMAP.md queue A, item 1: "
                 "rounds._occ_round)"
             )
         if mode != "elim":
@@ -866,6 +873,17 @@ class ABTree(RegistryBackedCounters):
         from repro_torch.core import rounds
 
         return rounds.execute_scan(self, lo, hi, cap=cap, max_retries=max_retries)
+
+    def scan_delete_round(self, lo, hi, cap: int = 128, max_retries: int = 8) -> ScanOutput:
+        """ONE fused round that gathers every key in ``[lo_i, hi_i)``
+        (<= ``cap`` smallest per query) and deletes the gathered keys: the
+        scan linearizes before the round's deletes, which target exactly the
+        snapshot it observed.  Returns the pre-delete scan (the evicted
+        keys/values); ``truncated`` marks queries with more matches left to
+        sweep."""
+        from repro_torch.core import rounds
+
+        return rounds.execute_scan_delete(self, lo, hi, cap=cap, max_retries=max_retries)
 
     def find(self, key) -> Optional[int]:
         out = self.apply_round([OP_FIND], [key])

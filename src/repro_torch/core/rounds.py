@@ -61,8 +61,8 @@ from repro_torch.core.abtree import (
     TreeConfig,
     TreeState,
     VAL_DTYPE,
-    _g,
     _get,
+    _leaf_rows,
     _segment_starts,
     apply_net_ops,
     frontier_expand_sharded,
@@ -296,7 +296,7 @@ def _phase_overfull_leaves(state: TreeState, cfg: TreeConfig, ks, deferred):
     """(S, W) unique sorted ids of full leaves holding deferred inserts,
     INT_MAX-padded."""
     leaf_ids = _search_leaves(state, cfg, ks)[0]
-    full = deferred & (_get(state.size, _g(state, leaf_ids)) >= cfg.b)
+    full = deferred & (_get(state.size, _leaf_rows(state, leaf_ids)) >= cfg.b)
     ids = torch.where(full, leaf_ids, INT_MAX)
     srt = torch.sort(ids, dim=1).values
     return torch.where(_segment_starts(srt), srt, INT_MAX)
@@ -573,6 +573,90 @@ def execute_scan(holder, lo, hi, cap: int = 128, max_retries: int = 8) -> ScanOu
     )
 
 
+def execute_scan_delete(holder, lo, hi, cap: int = 128, max_retries: int = 8) -> ScanOutput:
+    """ONE fused round that gathers every key in ``[lo_i, hi_i)`` (<= ``cap``
+    smallest per query) and deletes exactly the *emitted* keys
+    (``ABTree.scan_delete_round``).  Legal because the scan linearizes
+    before the round's writes: the deletes target exactly the snapshot the
+    scan observed.  Keys a truncated page did not emit survive for the
+    caller's next chunk.  Returns the pre-delete ``ScanOutput`` (the evicted
+    keys/values).  The recorder's ``fused="scan_delete"`` record is the JAX
+    engine's: range lanes first, then one delete lane per emitted key."""
+    lo = np.atleast_1d(np.asarray(lo, np.int64))
+    hi = np.atleast_1d(np.asarray(hi, np.int64))
+    if lo.shape != hi.shape or lo.ndim != 1:
+        raise ValueError("scan_delete_round expects equal-length 1-D lo/hi")
+    tr = _tr(holder)
+    reg = _metrics(holder)
+    rec = _rec(holder)
+    dev = holder.device
+    del_res = del_fnd = None
+    with tr.span("round", lanes=int(lo.size), fused="scan_delete"):
+        k_, v_, c_, t_ = scan_lanes(
+            holder, lo, hi, cap, n_scan_ops=int(lo.size), max_retries=max_retries
+        )
+        del_keys = k_[k_ != EMPTY]
+        if del_keys.size:
+            n_shards = holder.n_shards
+            with tr.span("router_pack", lanes=int(del_keys.size)) as pack_sp:
+                shard = np.searchsorted(holder._splits, del_keys, side="right")
+                counts = np.bincount(shard, minlength=n_shards)
+                w = _pow2(int(counts.max()))
+                ops_sw = np.full((n_shards, w), OP_NOP, np.int32)
+                keys_sw = np.zeros((n_shards, w), np.int64)
+                shard_sorted, slot_sorted, order = _pack_slots(shard, n_shards)
+                ops_sw[shard_sorted, slot_sorted] = elim.OP_DELETE
+                keys_sw[shard_sorted, slot_sorted] = del_keys[order]
+                _note_pack(holder, pack_sp, n_shards * w, int(del_keys.size))
+            tr.shard_marks("point_lanes", counts)
+            if reg is not None:
+                reg.inc("point_lanes", int(del_keys.size))
+                for s in np.nonzero(counts)[0]:
+                    reg.inc_shard("point_lanes", int(counts[s]), int(s))
+            holder._ensure_capacity(w)
+            res_sw, fnd_sw = run_point_phases(
+                holder,
+                torch.as_tensor(ops_sw, device=dev),
+                torch.as_tensor(keys_sw, device=dev),
+                torch.zeros((n_shards, w), dtype=VAL_DTYPE, device=dev),
+            )
+            if rec.enabled:
+                slot = np.empty(del_keys.size, np.int64)
+                slot[order] = slot_sorted
+                del_res = _np(res_sw)[shard, slot]
+                del_fnd = _np(fnd_sw)[shard, slot]
+        if rec.enabled:
+            n_r = int(lo.size)
+            n_d = int(del_keys.size)
+            rec.round(
+                round_no=holder._rounds,
+                mode=holder.mode,
+                n_shards=holder.n_shards,
+                ops=np.concatenate(
+                    [np.full((n_r,), OP_RANGE, np.int64), np.full((n_d,), elim.OP_DELETE, np.int64)]
+                ),
+                keys=np.concatenate([lo, del_keys.astype(np.int64)]),
+                vals=np.concatenate([hi - lo, np.zeros(n_d, np.int64)]),
+                results=np.concatenate(
+                    [c_.astype(np.int64), del_res if del_res is not None else np.zeros(0, np.int64)]
+                ),
+                found=np.concatenate(
+                    [c_ > 0, del_fnd if del_fnd is not None else np.zeros(0, bool)]
+                ),
+                scans={
+                    i: list(zip(k_[i, : c_[i]].tolist(), v_[i, : c_[i]].tolist()))
+                    for i in range(n_r)
+                },
+                scan_cap=cap,
+                fused="scan_delete",
+            )
+        holder._rounds += 1
+    return ScanOutput(
+        keys=torch.from_numpy(k_), vals=torch.from_numpy(v_),
+        count=torch.from_numpy(c_), truncated=torch.from_numpy(t_),
+    )
+
+
 # ----------------------------------------------------------------------------
 # Phases: search/combine → apply → retry → rebalance (point lanes)
 # ----------------------------------------------------------------------------
@@ -582,7 +666,7 @@ def run_point_phases(holder, ops_sw, keys_sw, vals_sw):
     """Execute the point-op pipeline on one packed ``(S, W)`` lane block
     (free of OP_RANGE).  Only elim mode is ported."""
     if holder.mode != "elim":
-        raise NotImplementedError("occ rounds are not ported yet (ROADMAP.md queue A, item 6)")
+        raise NotImplementedError("occ rounds are not ported yet (ROADMAP.md queue A, item 1)")
     return _combine_apply(holder, ops_sw, keys_sw, vals_sw)
 
 

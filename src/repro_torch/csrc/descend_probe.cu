@@ -17,8 +17,9 @@
 // child reads go through the read-only path (__ldg).  The loop stops at the
 // first leaf: leaves map to themselves in the reference's fixed-length
 // max_height loop, so stopping early returns the same node.  A NULL child
-// (-1) is sent to the scratch row N-1 explicitly (the JAX reference relies
-// on negative gather indices wrapping).  An EMPTY query (a NOP lane) counts
+// (-1) is kept as the lane's node id, as the reference reports it, and its
+// row is read as the scratch row N-1 (the reference's gathers wrap negative
+// indices; here the wrap is explicit).  An EMPTY query (a NOP lane) counts
 // all b-1 routers and may match a free slot in the leaf it reaches; that is
 // the reference's behaviour and is kept bit for bit.
 //
@@ -47,19 +48,20 @@ __global__ void __launch_bounds__(256) descend_probe_kernel(
   const int s = (int)(i / B);
   const long long base = (long long)s * N;
   const long long q = queries[i];
-  int node = __ldg(root + s);
+  int node = __ldg(root + s);  // the id reported (-1 after a NULL child)
+  int row = node;              // the row read: node, or N-1 for -1
   for (int level = 0; level < max_height; ++level) {
-    if (__ldg(is_leaf + base + node)) break;
-    const long long* routers = keys + (base + node) * b;
+    if (__ldg(is_leaf + base + row)) break;
+    const long long* routers = keys + (base + row) * b;
     int idx = 0;
     for (int j = 0; j < b - 1; ++j) idx += (__ldg(routers + j) <= q) ? 1 : 0;
-    const int child = __ldg(children + (base + node) * b + idx);
-    node = child < 0 ? N - 1 : child;
+    node = __ldg(children + (base + row) * b + idx);
+    row = node < 0 ? node + N : node;
   }
-  const long long* row = keys + (base + node) * b;
+  const long long* leaf_keys = keys + (base + row) * b;
   int slot = -1;
   for (int j = 0; j < b; ++j) {
-    if (__ldg(row + j) == q) {
+    if (__ldg(leaf_keys + j) == q) {
       slot = j;
       break;
     }
@@ -67,7 +69,7 @@ __global__ void __launch_bounds__(256) descend_probe_kernel(
   leaf_out[i] = node;
   found_out[i] = slot >= 0 ? 1 : 0;
   slot_out[i] = slot >= 0 ? slot : 0;
-  val_out[i] = slot >= 0 ? __ldg(vals + (base + node) * b + slot) : notfound;
+  val_out[i] = slot >= 0 ? __ldg(vals + (base + row) * b + slot) : notfound;
 }
 
 }  // namespace

@@ -1,11 +1,21 @@
-"""Carry tree state between the JAX package and the port through numpy.
+"""Carry state between the JAX package and the port through numpy.
 
-``state_from_numpy`` takes a ``TreeState`` as a dict of numpy arrays (one
+Tree state: ``state_from_numpy`` takes a ``TreeState`` as a dict of numpy arrays (one
 per field, ``stats`` itself a dict or NamedTuple of per-counter arrays), in
 either the unstacked ``(N, ...)`` form of ``repro.core.ABTree.state`` or the
 stacked ``(S, N, ...)`` form, and returns the port's stacked state on
-``device``.  ``state_to_numpy`` goes the other way (stacked form).  The
-caller converts the JAX arrays to numpy, so this module imports no JAX.
+``device``.  ``state_to_numpy`` goes the other way (stacked form).
+
+Model parameters and decode caches: ``params_from_numpy`` takes the JAX
+package's param tree as nested dicts of numpy arrays (stacked ``(L, …)``
+layer leaves; a tied unembedding reads ``embed/tok``, so there is no second
+copy to carry) and returns the same tree of tensors on ``device``;
+``cache_from_numpy`` takes the decode cache (``{"layers": KVCache(k, v)}``
+with numpy leaves).  ``params_to_numpy`` / ``cache_to_numpy`` go the other
+way.  bfloat16 arrays (``ml_dtypes.bfloat16``, as ``np.asarray`` gives them
+for JAX's bf16) cross as their 16-bit patterns.
+
+The caller converts the JAX arrays to numpy, so this module imports no JAX.
 """
 from __future__ import annotations
 
@@ -15,6 +25,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.abtree import TreeState, TreeStats
+from repro_torch.models.attention import KVCache
 
 _DTYPES = dict(
     keys=torch.int64, vals=torch.int64, children=torch.int32, parent=torch.int32,
@@ -65,3 +76,58 @@ def _npdtype(dt: torch.dtype):
     return {
         torch.int64: np.int64, torch.int32: np.int32, torch.bool: np.bool_,
     }[dt]
+
+
+def _tensor(a, device) -> torch.Tensor:
+    a = np.array(a)  # a writable copy: JAX hands out read-only buffers
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.view(np.int16)).view(torch.bfloat16).to(device)
+    return torch.from_numpy(a).to(device)
+
+
+def _array(t: torch.Tensor) -> np.ndarray:
+    """A copy: the port updates caches in place."""
+    t = t.detach().cpu().clone()
+    if t.dtype == torch.bfloat16:
+        import ml_dtypes  # only a bf16 tensor needs it
+
+        return t.view(torch.int16).numpy().view(ml_dtypes.bfloat16)
+    return t.numpy()
+
+
+def params_from_numpy(tree, device="cpu"):
+    """The port's param tree from the JAX package's, leaf for leaf."""
+    if isinstance(tree, dict):
+        return {k: params_from_numpy(v, device) for k, v in tree.items()}
+    return _tensor(tree, device)
+
+
+def params_to_numpy(tree):
+    """Nested dicts of numpy arrays from the port's param tree."""
+    if isinstance(tree, dict):
+        return {k: params_to_numpy(v) for k, v in tree.items()}
+    return _array(tree)
+
+
+def _kv_parts(kv):
+    if hasattr(kv, "_asdict"):
+        kv = kv._asdict()
+    return kv["k"], kv["v"]
+
+
+def cache_from_numpy(cache, device="cpu"):
+    """The port's decode cache from ``{name: KVCache(k, v)}`` (a NamedTuple
+    or a dict with ``k`` and ``v`` per entry) of numpy arrays."""
+    out = {}
+    for name, kv in cache.items():
+        k, v = _kv_parts(kv)
+        out[name] = KVCache(_tensor(k, device), None if v is None else _tensor(v, device))
+    return out
+
+
+def cache_to_numpy(cache):
+    """``{name: {"k": array, "v": array}}`` from the port's decode cache."""
+    return {
+        name: {"k": _array(kv.k), "v": None if kv.v is None else _array(kv.v)}
+        for name, kv in cache.items()
+    }

@@ -16,8 +16,9 @@ port on a machine with no ``nvcc`` and no card.
 Each kernel also keeps a :class:`LaunchCounter`.  Its ``launches`` count
 goes up by one where the kernel is launched and nowhere else, so a run can
 show which kernels its main path went through; with ``calls`` set to a
-list, the launcher also appends the arguments of every launch (the chip
-smoke test replays one main-path call against the plain version).
+list (or a ``deque`` with a ``maxlen`` to keep only the latest), the
+launcher also appends the arguments of every launch (the chip smoke test
+replays one main-path call against the plain version).
 """
 from __future__ import annotations
 
@@ -34,7 +35,7 @@ import torch
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
-SOURCES = ("descend_probe", "frontier_compact", "elim_combine", "range_scan")
+SOURCES = ("descend_probe", "frontier_compact", "elim_combine", "range_scan", "decode_attention")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC",
@@ -171,3 +172,4 @@ def bind(lib_name: str, fn_name: str, argtypes) -> ctypes._CFuncPtr:
 P = ctypes.c_void_p
 I32 = ctypes.c_int
 I64 = ctypes.c_longlong
+F32 = ctypes.c_float

@@ -6,9 +6,10 @@ and a query block is ``(S, B)``, lane ``(s, i)`` searching shard ``s``.
 The engine reaches them only through ``ops.py``, on CPU tensors.
 
 Sentinels follow the tree: the key dtype's max is EMPTY (sorts last, never a
-user key) and a NULL child (-1) is sent to the scratch row ``N - 1`` by an
-explicit ``where`` (JAX reached the same row by wrapping negative gather
-indices; torch raises on them instead).
+user key).  A NULL child (-1) stays the lane's node id, as JAX reports it,
+and is read as the scratch row ``N - 1`` through :func:`wrap_ids` (JAX
+reaches that row by wrapping negative gather indices; torch raises on them
+instead, so the wrap is explicit).
 """
 from __future__ import annotations
 
@@ -18,6 +19,12 @@ import torch
 def _flat(x: torch.Tensor) -> torch.Tensor:
     """(S, N, ...) -> (S*N, ...) view: global row ``s*N + node``."""
     return x.reshape(x.shape[0] * x.shape[1], *x.shape[2:])
+
+
+def wrap_ids(ids: torch.Tensor, n: int) -> torch.Tensor:
+    """Node ids as rows of an ``n``-row pool: -1 (a NULL child) names row
+    ``n - 1``, as JAX's negative-index gathers read it."""
+    return torch.where(ids < 0, ids + n, ids)
 
 
 def _base(pool: torch.Tensor) -> torch.Tensor:
@@ -37,18 +44,17 @@ def descend_ref(
 ) -> torch.Tensor:
     """Root-to-leaf search: per level follow ``ptrs[#routers <= key]``
     (unused routers are EMPTY = dtype max, never counted for user keys).
-    Returns (S, B) int32 leaf ids."""
+    Returns (S, B) int32 leaf ids, -1 where the last step took a NULL
+    child."""
     n, b = pool_keys.shape[1], pool_keys.shape[2]
     base = _base(pool_keys)
     keys_f, ch_f, leaf_f = _flat(pool_keys), _flat(children), _flat(is_leaf)
     node = root.to(torch.int64)[:, None].expand(queries.shape).clone()
     for _ in range(max_height):
-        g = node + base
+        g = wrap_ids(node, n) + base
         routers = keys_f[g][..., : b - 1]
         idx = (routers <= queries[..., None]).sum(-1)
-        child = ch_f[g, idx].to(torch.int64)
-        child = torch.where(child < 0, n - 1, child)
-        node = torch.where(leaf_f[g], node, child)
+        node = torch.where(leaf_f[g], node, ch_f[g, idx].to(torch.int64))
     return node.to(torch.int32)
 
 
@@ -61,8 +67,8 @@ def probe_ref(
     notfound: int,
 ):
     """Unsorted-leaf probe across the b slots; ``slot`` is the first match
-    (0 when absent, masked by ``found``)."""
-    g = leaf_ids.to(torch.int64) + _base(pool_keys)
+    (0 when absent, masked by ``found``).  A leaf id of -1 reads row N-1."""
+    g = wrap_ids(leaf_ids.to(torch.int64), pool_keys.shape[1]) + _base(pool_keys)
     eq = _flat(pool_keys)[g] == queries[..., None]
     found = eq.any(-1)
     slot = eq.to(torch.uint8).argmax(-1)

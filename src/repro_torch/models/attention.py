@@ -1,0 +1,117 @@
+"""GQA attention for decoding (port of the GQA part of
+``src/repro/models/attention.py``).
+
+The decode path updates a static-shape KV cache and masks by ``kv_len``:
+the whole live cache is streamed once per token by the decode-attention
+kernel (``kernels/decode_attention``; the JAX package calls its plain
+reference here, the port calls the kernel on CUDA tensors).  Sliding-window
+decode stays plain, as in JAX.
+
+The training path (``gqa_train``) waits for the flash-attention kernel
+(ROADMAP.md queue B, item 6); MLA and cross-attention wait for their
+families (queue A, item 6).
+"""
+from __future__ import annotations
+
+from typing import NamedTuple, Optional
+
+import torch
+
+from repro_torch.kernels.decode_attention.ops import decode_attention
+from repro_torch.models.layers import cdt, rope_cos_sin, rotate
+from repro_torch.models.params import P, TensorSpec
+
+
+class KVCache(NamedTuple):
+    k: torch.Tensor  # (B, KH, S, D), or (L, B, KH, S, D) stacked over layers
+    v: Optional[torch.Tensor]
+
+
+def gqa_spec(cfg):
+    d, h, kh, dh = cfg.d_model, cfg.n_heads, cfg.n_kv, cfg.d_head
+    s = {
+        "wq": P((d, h, dh), ("embed", "heads", None)),
+        "wk": P((d, kh, dh), ("embed", "kv_heads", None)),
+        "wv": P((d, kh, dh), ("embed", "kv_heads", None)),
+        "wo": P((h, dh, d), ("heads", None, "embed")),
+    }
+    if cfg.qkv_bias:
+        s["bq"] = P((h, dh), ("heads", None), "zeros")
+        s["bk"] = P((kh, dh), ("kv_heads", None), "zeros")
+        s["bv"] = P((kh, dh), ("kv_heads", None), "zeros")
+    return s
+
+
+def _proj(x, w, dt):
+    """einsum("bsd,dhk->bhsk", x, w) as one matmul."""
+    b, s, d = x.shape
+    _, h, k = w.shape
+    return (x @ w.to(dt).reshape(d, h * k)).reshape(b, s, h, k).transpose(1, 2)
+
+
+def _qkv(p, x, cfg, positions):
+    dt = cdt(cfg)
+    q = _proj(x, p["wq"], dt)
+    k = _proj(x, p["wk"], dt)
+    v = _proj(x, p["wv"], dt)
+    if cfg.qkv_bias:
+        q = q + p["bq"].to(dt)[None, :, None, :]
+        k = k + p["bk"].to(dt)[None, :, None, :]
+        v = v + p["bv"].to(dt)[None, :, None, :]
+    if cfg.use_rope:
+        # q and k rotate at the same positions: one (cos, sin) for both
+        cos, sin = rope_cos_sin(positions[:, None, :], cfg.d_head, cfg.rope_theta, x.device)
+        q, k = rotate(q, cos, sin), rotate(k, cos, sin)
+    return q, k, v
+
+
+def gqa_decode(p, x, cfg, cache: KVCache, pos: int):
+    """One-token decode.  x: (B, 1, d); pos: the current index, a host int
+    shared by every row.  Returns (y (B, 1, d), cache).
+
+    The new K/V column of every batch row is written at ``pos`` in place
+    (JAX returns a new cache from ``dynamic_update_slice``, which clamps the
+    index into range; so does this write).  Writing every row at one shared
+    position is the reference's behaviour and is kept (ROADMAP.md queue C)."""
+    b = x.shape[0]
+    positions = torch.full((b, 1), pos, dtype=torch.int32, device=x.device)
+    q, k, v = _qkv(p, x, cfg, positions)  # q (B,H,1,D); k/v (B,KH,1,D)
+    s = cache.k.shape[2]
+    col = min(max(int(pos), 0), s - 1)
+    cache.k[:, :, col] = k[:, :, 0].to(cache.k.dtype)
+    cache.v[:, :, col] = v[:, :, 0].to(cache.v.dtype)
+    kv_len = int(pos) + 1
+    if cfg.window > 0:
+        o = _decode_windowed(q[:, :, 0], cache.k, cache.v, kv_len, cfg.window)
+    else:
+        # columns past S do not exist: kv_len > S reads all S, as JAX's mask does
+        o = decode_attention(
+            q[:, :, 0].contiguous(), cache.k.to(q.dtype), cache.v.to(q.dtype), min(kv_len, s)
+        )
+    hd = o.shape[1] * o.shape[2]
+    y = o.reshape(b, hd) @ p["wo"].to(cdt(cfg)).reshape(hd, -1)
+    return y[:, None, :], cache
+
+
+def _decode_windowed(q, k, v, kv_len, window):
+    b, h, d = q.shape
+    kh, s = k.shape[1], k.shape[2]
+    group = h // kh
+    kx = torch.repeat_interleave(k.to(q.dtype), group, dim=1)
+    vx = torch.repeat_interleave(v.to(q.dtype), group, dim=1)
+    scores = torch.einsum("bhd,bhkd->bhk", q.float(), kx.float())
+    scores = scores / (d**0.5)
+    idx = torch.arange(s, device=q.device)[None, None, :]
+    mask = (idx < kv_len) & (idx >= kv_len - window)
+    scores = scores.masked_fill(~mask, -1e30)
+    p_ = torch.softmax(scores, dim=-1)
+    return torch.einsum("bhk,bhkd->bhd", p_, vx.float()).to(q.dtype)
+
+
+def gqa_cache_spec(cfg, batch, s_max, layers=None):
+    kh, dh = cfg.n_kv, cfg.d_head
+    shape = (batch, kh, s_max, dh)
+    if layers:
+        shape = (layers,) + shape
+    dt = cdt(cfg)
+    return KVCache(k=TensorSpec(shape, dt), v=TensorSpec(shape, dt))

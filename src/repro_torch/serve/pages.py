@@ -1,0 +1,173 @@
+"""Paged KV-cache management with the Elim-ABtree as the prefix/session
+index: the paper's data structure doing its production job (port of
+``src/repro/serve/pages.py``).
+
+The block manager is host-side control logic (as in vLLM); device memory
+holds the page pool.  Two index workloads hit the tree:
+
+  * **prefix cache**: hash-chain of token blocks → page id.  Skewed (hot
+    system prompts dominate) and update-heavy under churn: the elimination
+    path collapses repeated insert/delete of hot prefixes.
+  * **session index**: request/session id → page-table id, constant churn
+    at request granularity.
+
+Both run as batched rounds of the port's ``ABTree`` (one tree, elim mode),
+so every lookup, publish and evict round runs the ``descend_probe`` and
+``elim_combine`` kernels, and every session sweep the scan kernels
+(``frontier_compact``, ``range_scan``) before its delete round.
+
+Not ported yet, each raising ``NotImplementedError`` that names its roadmap
+item: ``mode="occ"`` (queue A, item 1), ``shards > 1`` (the forest, item 3)
+and ``durable_dir`` / ``faults`` (durability, item 4).
+"""
+from __future__ import annotations
+
+import hashlib
+from typing import Dict, List, Optional, Tuple
+
+import numpy as np
+
+from repro_torch.core.abtree import ABTree, OP_DELETE, OP_FIND, OP_INSERT, TreeConfig
+
+PAGE = 256  # tokens per KV page
+
+
+def _hash_chain(prev: int, block_tokens: Tuple[int, ...]) -> int:
+    h = hashlib.blake2b(digest_size=8)
+    h.update(prev.to_bytes(8, "little", signed=False))
+    h.update(np.asarray(block_tokens, np.int32).tobytes())
+    # keep positive and below the tree's EMPTY sentinel
+    return int.from_bytes(h.digest(), "little") >> 1
+
+
+def prefix_hashes(tokens: List[int]) -> List[Tuple[int, Tuple[int, ...]]]:
+    """Hash-chain per full PAGE block of the prompt."""
+    out = []
+    prev = 0
+    for i in range(0, len(tokens) - len(tokens) % PAGE, PAGE):
+        block = tuple(tokens[i : i + PAGE])
+        h = _hash_chain(prev, block)
+        out.append((h, block))
+        prev = h
+    return out
+
+
+class PagedKVCache:
+    """Fixed pool of KV pages + free list + per-request page tables."""
+
+    def __init__(self, n_pages: int):
+        self.n_pages = n_pages
+        self.free: List[int] = list(range(n_pages))
+        self.page_tables: Dict[int, List[int]] = {}
+        self.ref: np.ndarray = np.zeros(n_pages, np.int32)  # prefix sharing
+
+    def alloc(self, rid: int, n: int) -> Optional[List[int]]:
+        if len(self.free) < n:
+            return None
+        pages = [self.free.pop() for _ in range(n)]
+        for p in pages:
+            self.ref[p] += 1
+        self.page_tables.setdefault(rid, []).extend(pages)
+        return pages
+
+    def share(self, rid: int, pages: List[int]):
+        for p in pages:
+            self.ref[p] += 1
+        self.page_tables.setdefault(rid, []).extend(pages)
+
+    def release(self, rid: int):
+        for p in self.page_tables.pop(rid, []):
+            self.ref[p] -= 1
+            if self.ref[p] == 0:
+                self.free.append(p)
+
+    @property
+    def used(self) -> int:
+        return self.n_pages - len(self.free)
+
+
+def _not_ported(knob: str, item: int, what: str) -> NotImplementedError:
+    return NotImplementedError(
+        f"{knob} is not ported yet (ROADMAP.md queue A, item {item}: {what})"
+    )
+
+
+class PrefixIndex:
+    """Prefix-block hash → page id, on the port's Elim-ABtree.
+
+    ``device`` defaults to ``"cuda"`` (the tree raises without a card);
+    tests pass ``device="cpu"``.  The JAX index's forest (``shards``) and
+    durability (``durable_dir``, ``faults``) are refused until their
+    roadmap items land; the knobs that only they read (key space, group
+    commit, snapshots) come with them."""
+
+    def __init__(
+        self,
+        mode: str = "elim",
+        capacity: int = 1 << 14,
+        *,
+        shards: int = 1,
+        durable_dir: Optional[str] = None,
+        faults=None,
+        device=None,
+    ):
+        if mode == "occ":
+            raise _not_ported("mode='occ'", 1, "rounds._occ_round")
+        if durable_dir is not None or faults is not None:
+            raise _not_ported("a durable index", 4, "core/durable.py and core/faults.py")
+        if shards > 1:
+            raise _not_ported("a sharded index", 3, "core/forest.py")
+        cfg = TreeConfig(capacity=capacity, b=8, a=2)
+        self.tree = ABTree(cfg, mode=mode, device=device)
+
+    def lookup_batch(self, hashes: List[int]) -> List[Optional[int]]:
+        if not hashes:
+            return []
+        out = self.tree.apply_round(
+            [OP_FIND] * len(hashes), hashes, [0] * len(hashes)
+        )
+        res = out.results.numpy()
+        fnd = out.found.numpy()
+        return [int(r) if f else None for r, f in zip(res, fnd)]
+
+    def publish_batch(self, hashes: List[int], pages: List[int]):
+        if hashes:
+            self.tree.apply_round([OP_INSERT] * len(hashes), hashes, pages)
+
+    def evict_batch(self, hashes: List[int]):
+        if hashes:
+            self.tree.apply_round([OP_DELETE] * len(hashes), hashes, [0] * len(hashes))
+
+    def stats(self) -> dict:
+        return self.tree.stats()
+
+
+class SessionIndex(PrefixIndex):
+    """Session/request id → page-table id, on the batched tree.
+
+    Batched point lookups/publishes are inherited from PrefixIndex (the
+    keys are session ids rather than prefix hashes).  Session ids are
+    allocated monotonically, so retired sessions pile up in a contiguous
+    low range of the key space; eviction is therefore a *range* operation:
+    ``evict_range`` collects AND removes every live session id in
+    ``[lo, hi)`` with ONE fused scan+delete round per chunk
+    (``ABTree.scan_delete_round``: the round linearizes the scan before the
+    round's deletes)."""
+
+    def __init__(self, mode: str = "elim", capacity: int = 1 << 12, **kw):
+        super().__init__(mode=mode, capacity=capacity, **kw)
+
+    def evict_range(self, lo: int, hi: int, cap: int = 256) -> List[int]:
+        """Evict all sessions with lo <= rid < hi: one fused scan+delete
+        round per ``cap``-sized chunk (loops only when > cap sessions
+        match).  Returns the evicted (rid-sorted) page-table ids for the
+        caller to free."""
+        freed: List[int] = []
+        while True:
+            out = self.tree.scan_delete_round([lo], [hi], cap=cap)
+            n = int(out.count[0])
+            if n == 0:
+                return freed
+            freed.extend(int(v) for v in out.vals[0, :n].tolist())
+            if not bool(out.truncated[0]):
+                return freed

@@ -11,6 +11,7 @@ torch = pytest.importorskip("torch")
 
 from repro_torch.core import ABTree, TreeConfig  # noqa: E402
 from repro_torch.kernels import _lib  # noqa: E402
+from repro_torch.kernels.decode_attention import kernel as da_kernel, ops as da_ops, ref as da_ref  # noqa: E402
 from repro_torch.kernels.elim_combine import kernel as ec_kernel, ops as ec_ops, ref as ec_ref  # noqa: E402
 from repro_torch.kernels.range_scan import kernel as rs_kernel, ops as rs_ops, ref as rs_ref  # noqa: E402
 from repro_torch.kernels.tree_descend import kernel as td_kernel, ops as td_ops, ref as td_ref  # noqa: E402
@@ -31,7 +32,8 @@ def _imported_roots(path: Path):
 
 def test_port_files_found():
     names = {p.name for p in PORT_FILES}
-    assert {"abtree.py", "rounds.py", "elimination.py", "chip_smoke.py", "_lib.py"} <= names
+    assert {"abtree.py", "rounds.py", "elimination.py", "chip_smoke.py", "_lib.py",
+            "engine.py", "pages.py", "backbone.py", "attention.py"} <= names
 
 
 @pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(ROOT)))
@@ -68,6 +70,9 @@ def _wrappers():
          ec_kernel, "elim_combine_cuda", ec_ref, "elim_combine_ref"),
         ("range_scan", rs_ops.range_scan, (i64, i64, i64[0, :1], i64[0, :1]), dict(cap=2),
          rs_kernel, "range_scan_cuda", rs_ref, "range_scan_ref"),
+        ("decode_attention", da_ops.decode_attention,
+         (torch.zeros((1, 2, 64)), torch.zeros((1, 1, 8, 64)), torch.zeros((1, 1, 8, 64)), 3), {},
+         da_kernel, "decode_attention_cuda", da_ref, "decode_attention_ref"),
     ]
 
 
@@ -115,3 +120,29 @@ def test_kernel_launcher_raises_without_a_build(monkeypatch, tmp_path):
     x = torch.zeros((1, 8), dtype=torch.int32)
     with pytest.raises(RuntimeError, match="nvcc"):
         td_kernel.frontier_compact_cuda(x, x.bool(), 2)
+
+
+def test_gqa_decode_reaches_the_decode_kernel(monkeypatch):
+    """The model's decode attention goes through the kernel wrapper: with
+    every tensor reporting CUDA, ``gqa_decode`` calls the kernel launcher
+    and never the plain version."""
+    from repro_torch.models import attention
+    from repro_torch.models.config import ModelConfig
+    from repro_torch.models.params import init_params
+
+    cfg = ModelConfig(name="t", family="dense", n_layers=1, d_model=128, n_heads=2, n_kv=1,
+                      d_ff=8, vocab=8, dtype="float32")
+    p = init_params(attention.gqa_spec(cfg))
+    cache = attention.KVCache(torch.zeros((1, 1, 4, 64)), torch.zeros((1, 1, 4, 64)))
+
+    def kernel_spy(*a, **k):
+        raise _Reached
+
+    def plain_trap(*a, **k):
+        raise AssertionError("gqa_decode: CUDA input reached the plain version")
+
+    monkeypatch.setattr(_lib, "on_cuda", lambda t: True)
+    monkeypatch.setattr(da_kernel, "decode_attention_cuda", kernel_spy)
+    monkeypatch.setattr(da_ref, "decode_attention_ref", plain_trap)
+    with pytest.raises(_Reached):
+        attention.gqa_decode(p, torch.zeros((1, 1, 128)), cfg, cache, 2)

@@ -3,6 +3,8 @@ plain PyTorch version on the same CUDA tensors (bit-equal), and a small
 ``ABTree`` on the card against the ``DictOracle``.  Marked ``gpu``; they
 skip on a host without a CUDA card.  Run on the card with
 ``PYTHONPATH=src python -m pytest -m gpu tests/test_torch_gpu.py``."""
+import math
+
 import numpy as np
 import pytest
 
@@ -21,6 +23,8 @@ from repro_torch.core import (  # noqa: E402
     check_invariants,
 )
 from repro_torch.kernels import _lib  # noqa: E402
+from repro_torch.kernels.decode_attention import kernel as da_kernel  # noqa: E402
+from repro_torch.kernels.decode_attention.ref import decode_attention_ref  # noqa: E402
 from repro_torch.kernels.elim_combine import kernel as ec_kernel  # noqa: E402
 from repro_torch.kernels.elim_combine.ref import elim_combine_ref  # noqa: E402
 from repro_torch.kernels.range_scan import kernel as rs_kernel  # noqa: E402
@@ -127,6 +131,53 @@ def test_range_scan_cap_limit_named(cuda):
         rs_kernel.range_scan_cuda(x, x, lo, lo, cap=rs_kernel.MAX_CAP + 1)
 
 
+@pytest.mark.parametrize(
+    "b,h,kh,s,d,kv_len,dtype",
+    [(8, 14, 2, 1024, 64, 1024, torch.bfloat16),  # qwen2-0.5b serving shape, G = 7
+     (8, 14, 2, 1024, 64, 517, torch.bfloat16),
+     (3, 14, 2, 1000, 64, 1, torch.float32),
+     (2, 8, 2, 777, 128, 700, torch.float32),
+     (1, 16, 1, 300, 128, 299, torch.bfloat16),  # G = 16 at D = 128
+     (2, 4, 4, 64, 64, 33, torch.float32),
+     (4, 4, 2, 128, 32, 77, torch.bfloat16)],  # reduced configs' head dim
+)
+def test_decode_attention_kernel_equals_plain(cuda, b, h, kh, s, d, kv_len, dtype):
+    """Split-KV kernel against the plain version on the same CUDA tensors:
+    f32 within 1e-5 (summation order); bf16 within 2 bf16 ulps at the
+    output's largest magnitude (both round one f32 result once)."""
+    gen = torch.Generator(device="cpu").manual_seed(b * s + kv_len)
+    q = torch.randn((b, h, d), generator=gen).to(cuda, dtype)
+    k = torch.randn((b, kh, s, d), generator=gen).to(cuda, dtype)
+    v = torch.randn((b, kh, s, d), generator=gen).to(cuda, dtype)
+    scale = 1.0 / d**0.5
+    got = da_kernel.decode_attention_cuda(q, k, v, kv_len, scale)
+    want = decode_attention_ref(q, k, v, kv_len)
+    torch.cuda.synchronize()
+    if dtype == torch.bfloat16:
+        top = float(want.abs().max())
+        ulp = torch.finfo(dtype).eps * 2.0 ** math.floor(math.log2(top))
+        err = float((got.float() - want.float()).abs().max())
+        assert err <= 2 * ulp, (err, top)
+    else:
+        torch.testing.assert_close(got.float().cpu(), want.float().cpu(), atol=1e-5, rtol=1e-5)
+    # columns past kv_len are never read: poisoning them changes nothing
+    k[:, :, kv_len:] = float("nan")
+    v[:, :, kv_len:] = float("nan")
+    again = da_kernel.decode_attention_cuda(q, k, v, kv_len, scale)
+    assert torch.equal(again, got)
+
+
+def test_decode_attention_limits_named(cuda):
+    q = torch.zeros((1, 4, 48), device=cuda)
+    k = torch.zeros((1, 2, 8, 48), device=cuda)
+    with pytest.raises(ValueError, match="head dim"):
+        da_kernel.decode_attention_cuda(q, k, k, 4, 1.0)
+    q = torch.zeros((1, 4, 64), device=cuda)
+    k = torch.zeros((1, 2, 8, 64), device=cuda)
+    with pytest.raises(ValueError, match="kv_len"):
+        da_kernel.decode_attention_cuda(q, k, k, 9, 1.0)
+
+
 def test_abtree_on_card_matches_oracle(cuda):
     """Mixed rounds with splits, merges and truncated scans on the card,
     every kernel launched, lane-for-lane equal to the oracle."""
@@ -153,3 +204,44 @@ def test_abtree_on_card_matches_oracle(cuda):
     assert t.items() == o.items()
     for name in ("descend_probe", "frontier_compact", "elim_combine", "range_scan"):
         assert _lib.COUNTERS[name].launches > 0, name
+
+
+def _to(tree, dev):
+    if isinstance(tree, dict):
+        return {k: _to(v, dev) for k, v in tree.items()}
+    return tree.to(dev)
+
+
+def test_serve_engine_on_card_matches_cpu(cuda):
+    """A small f32 engine on the card (decode attention and all four tree
+    kernels launched) gives the tokens and index contents of the same
+    engine on the CPU, serial and pipelined."""
+    from repro_torch.models import backbone
+    from repro_torch.models.config import ModelConfig
+    from repro_torch.models.params import init_params
+    from repro_torch.serve import Request, ServeEngine
+
+    cfg = ModelConfig(name="small", family="dense", n_layers=2, d_model=128, n_heads=4,
+                      n_kv=2, d_ff=256, vocab=128, d_head=64, qkv_bias=True,
+                      tie_embeddings=True, dtype="float32")
+    params = init_params(backbone.model_spec(cfg), seed=5)
+    rng = np.random.default_rng(5)
+    hot = rng.integers(0, 128, 260).tolist()
+    reqs = [(rid, hot if rid % 3 else rng.integers(0, 128, 260).tolist()) for rid in range(6)]
+    runs = {}
+    for dev, pipelined in (("cpu", False), (cuda, False), (cuda, True)):
+        _lib.reset_counts()
+        eng = ServeEngine(cfg, max_batch=2, s_max=300, n_pages=6, pipelined=pipelined,
+                          device=dev, params=_to(params, dev))
+        for rid, prompt in reqs:
+            eng.submit(Request(rid=rid, prompt=list(prompt), max_new=4))
+        eng.run_until_done(max_ticks=500)
+        runs[(str(dev), pipelined)] = ({r.rid: r.out for r in eng.done}, eng.index.tree.items(),
+                                       eng.sessions.tree.items(), eng.stats()["cache_hit_blocks"])
+        if dev != "cpu":
+            for name in _lib.SOURCES:
+                assert _lib.COUNTERS[name].launches > 0, name
+    want = runs[("cpu", False)]
+    assert want[3] > 0
+    for key, got in runs.items():
+        assert got == want, key

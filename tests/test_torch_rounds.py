@@ -226,3 +226,68 @@ def test_round_plan_equals_jax_build_plan():
             assert g == w, name
         else:
             assert np.array_equal(g.numpy(), np.asarray(w)), name
+
+
+# ----------------------------------------------------------------------------
+# scan_delete_round: one fused scan + delete-the-emitted-keys round
+# ----------------------------------------------------------------------------
+
+SWEEPS = [  # (lo, hi, cap): truncated chunks, an empty range, multi-lane
+    ([0], [200], 4),
+    ([0], [200], 4),
+    ([150, 400], [260, 10**6], 8),
+    ([250], [251], 8),
+    ([0], [1 << 40], 64),
+]
+
+
+@pytest.fixture(scope="module")
+def sweeps():
+    """A tree grown by the first rounds of the schedule, then swept by
+    ``scan_delete_round`` in both engines."""
+    jt = J.ABTree(J.TreeConfig(**CFG))
+    tt = T.ABTree(T.TreeConfig(**CFG), device="cpu")
+    for ops, keys, vals in _schedule()[:7]:
+        jt.apply_round(ops, keys, vals, scan_cap=CAP)
+        tt.apply_round(ops, keys, vals, scan_cap=CAP)
+    out = []
+    for lo, hi, cap in SWEEPS:
+        a = jt.scan_delete_round(lo, hi, cap=cap)
+        b = tt.scan_delete_round(lo, hi, cap=cap)
+        out.append((_scan_np(a), _scan_np(b), _pool_diff(jt, tt), tt.items() == jt.items()))
+    return dict(jt=jt, tt=tt, out=out)
+
+
+@pytest.mark.parametrize("i", range(len(SWEEPS)))
+def test_scan_delete_round_equals_jax(sweeps, i):
+    """Evicted rows, counts and truncation flags, the pool and the contents
+    after each sweep are those of the JAX engine."""
+    a, b, diff, same_items = sweeps["out"][i]
+    assert _eq_scan(a, b), f"sweep {i} rows"
+    assert diff == [], f"sweep {i}: {diff}"
+    assert same_items
+
+
+def test_scan_delete_round_sweeps_and_truncates(sweeps):
+    """The sweeps did real work: the first chunks were truncated, the next
+    chunk resumed past them, and every emitted key is gone."""
+    out, tt = sweeps["out"], sweeps["tt"]
+    first, second = out[0][1], out[1][1]
+    assert bool(first[3][0]) and int(first[2][0]) == 4
+    assert set(first[0][0, :4].tolist()).isdisjoint(second[0][0, : int(second[2][0])].tolist())
+    assert int(out[3][1][2][0]) == 0  # an empty range deletes nothing
+    emitted = {k for _, b, _, _ in out for row, n in zip(b[0], b[2]) for k in row[: int(n)].tolist()}
+    assert len(emitted) > 64 and emitted.isdisjoint(tt.items())
+    check_invariants(tt.state, tt.cfg)
+    assert tt.stats() == sweeps["jt"].stats()
+
+
+def test_scan_delete_recorder_records_equal_jax(sweeps):
+    """``fused="scan_delete"`` records (range lanes, then one delete lane
+    per emitted key) equal the JAX recorder's and pass its witness."""
+    jt, tt = sweeps["jt"], sweeps["tt"]
+    records = [json.loads(line) for line in tt.recorder.dump_records()]
+    assert records == [json.loads(line) for line in jt.recorder.dump_records()]
+    fused = [r for r in records if r.get("fused") == "scan_delete"]
+    assert len(fused) == len(SWEEPS)
+    check_history(records)

@@ -1,0 +1,186 @@
+"""The port's serving stack against the JAX package on the CPU.
+
+Prefix hashes bit for bit; ``PrefixIndex`` / ``SessionIndex`` (including
+``evict_range``) call for call, with their trees' contents, stats and
+flight-recorder histories; then ``ServeEngine``, serial and pipelined, on a
+tiny dense config with 260-token prompts (one full ``PAGE`` block hashed,
+so the prefix cache is hit) from the JAX engine's params carried across:
+the same tokens, ``cache_hit_blocks``, ``admitted``, ``retired`` and
+``ticks``.  Both packages' engines keep the reference's serving faults
+(one shared cache position per step), so equal tokens include them."""
+import json
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax  # noqa: E402
+
+import repro.core  # noqa: E402,F401  (jax x64 before any JAX input is built)
+from repro.models.config import ModelConfig as JModelConfig  # noqa: E402
+from repro.obs.witness import check_history  # noqa: E402
+from repro.serve import engine as jengine  # noqa: E402
+from repro.serve import pages as jpages  # noqa: E402
+
+from repro_torch.core import DictOracle, check_invariants  # noqa: E402
+from repro_torch.interop import params_from_numpy  # noqa: E402
+from repro_torch.models.config import ModelConfig  # noqa: E402
+from repro_torch.serve import Request, ServeEngine  # noqa: E402
+from repro_torch.serve import pages  # noqa: E402
+
+TINY = dict(name="tiny", family="dense", n_layers=1, d_model=32, n_heads=2, n_kv=1,
+            d_ff=64, vocab=64, qkv_bias=True, tie_embeddings=True, dtype="float32")
+
+
+def test_prefix_hashes_bit_equal():
+    rng = np.random.default_rng(0)
+    assert pages.PAGE == jpages.PAGE
+    for n in (0, 255, 256, 260, 700, 1024):
+        toks = rng.integers(0, 151_936, n).tolist()
+        assert pages.prefix_hashes(toks) == jpages.prefix_hashes(toks)
+    assert pages._hash_chain(2**63 - 1, (1, 2, 3)) == jpages._hash_chain(2**63 - 1, (1, 2, 3))
+
+
+def _index_script(rng):
+    """(method, args) calls of a churned prefix index: publish, look up,
+    evict and re-publish hot blocks."""
+    hashes = [pages._hash_chain(i, (i,)) for i in range(40)]
+    calls = []
+    for r in range(6):
+        pick = rng.choice(40, 8, replace=False).tolist()
+        calls.append(("publish_batch", ([hashes[i] for i in pick], [r * 100 + i for i in pick])))
+        calls.append(("lookup_batch", ([hashes[i] for i in rng.choice(40, 8).tolist()],)))
+        calls.append(("evict_batch", ([hashes[i] for i in pick[:5]],)))
+    return calls
+
+
+def test_prefix_index_equals_jax():
+    rng = np.random.default_rng(1)
+    t, j = pages.PrefixIndex(device="cpu"), jpages.PrefixIndex()
+    for name, args in _index_script(rng):
+        assert getattr(t, name)(*args) == getattr(j, name)(*args), name
+    assert t.tree.items() == j.tree.items()
+    assert t.stats() == j.stats()
+    check_invariants(t.tree.state, t.tree.cfg)
+    records = [json.loads(x) for x in t.tree.recorder.dump_records()]
+    assert records == [json.loads(x) for x in j.tree.recorder.dump_records()]
+
+
+def test_session_index_evict_range_equals_jax():
+    """Monotone session ids, swept in chunks: each ``evict_range`` returns
+    the same page ids as JAX, in as many fused scan+delete rounds."""
+    t, j = pages.SessionIndex(device="cpu"), jpages.SessionIndex()
+    oracle = DictOracle()
+    rids = list(range(50))
+    vals = [1000 + 3 * r for r in rids]
+    for a in range(0, 50, 10):
+        t.publish_batch(rids[a : a + 10], vals[a : a + 10])
+        j.publish_batch(rids[a : a + 10], vals[a : a + 10])
+        for r, v in zip(rids[a : a + 10], vals[a : a + 10]):
+            oracle.d[r] = v
+    for lo, hi, cap in ((0, 23, 8), (23, 24, 8), (30, 31, 8), (24, 45, 8)):
+        got = t.evict_range(lo, hi, cap=cap)
+        assert got == j.evict_range(lo, hi, cap=cap)
+        for r in [r for r in oracle.d if lo <= r < hi]:
+            assert oracle.d.pop(r) in got
+    assert t.tree.items() == j.tree.items() == oracle.items()
+    assert t.stats() == j.stats()
+    records = [json.loads(x) for x in t.tree.recorder.dump_records()]
+    assert records == [json.loads(x) for x in j.tree.recorder.dump_records()]
+    assert sum(r.get("fused") == "scan_delete" for r in records) > 4  # chunked sweeps
+    check_history(records)
+
+
+@pytest.mark.parametrize(
+    "kw,match",
+    [(dict(mode="occ"), "item 1"), (dict(shards=2), "item 3"),
+     (dict(durable_dir="x"), "item 4")],
+)
+def test_unported_index_knobs_name_the_roadmap_item(kw, match):
+    with pytest.raises(NotImplementedError, match=match):
+        pages.PrefixIndex(device="cpu", **kw)
+
+
+def _requests(n, seed):
+    """260-token prompts: one full PAGE block each, most of them one hot
+    prompt, so later requests hit the prefix cache."""
+    rng = np.random.default_rng(seed)
+    hot = rng.integers(0, 64, 260).tolist()
+    out = []
+    for rid in range(n):
+        prompt = list(hot) if rid % 3 != 2 else rng.integers(0, 64, 260).tolist()
+        out.append((rid, prompt, 3 + rid % 2))
+    return out
+
+
+ENGINE = dict(max_batch=2, s_max=300, n_pages=6)  # 2 pages a request: retire evicts
+
+
+@pytest.fixture(scope="module", params=[False, True], ids=["serial", "pipelined"])
+def engines(request):
+    jcfg, tcfg = JModelConfig(**TINY), ModelConfig(**TINY)
+    jeng = jengine.ServeEngine(jcfg, pipelined=request.param, **ENGINE)
+    params = params_from_numpy(jax.tree.map(np.asarray, jeng.params))
+    teng = ServeEngine(tcfg, pipelined=request.param, device="cpu", params=params, **ENGINE)
+    for eng, req in ((jeng, jengine.Request), (teng, Request)):
+        for rid, prompt, max_new in _requests(5, seed=3):
+            eng.submit(req(rid=rid, prompt=prompt, max_new=max_new))
+        eng.run_until_done(max_ticks=200)
+    return jeng, teng
+
+
+def test_engine_tokens_equal_jax(engines):
+    jeng, teng = engines
+    want = {r.rid: r.out for r in jeng.done}
+    got = {r.rid: r.out for r in teng.done}
+    assert got == want and len(got) == 5
+    assert [r.rid for r in teng.done] == [r.rid for r in jeng.done]
+
+
+def test_engine_counters_equal_jax(engines):
+    jeng, teng = engines
+    for name in ("admitted", "retired", "ticks", "decode_tokens", "cache_hit_blocks"):
+        assert teng.metrics.value(name) == jeng.metrics.value(name), name
+    ts, js = teng.stats(), jeng.stats()
+    for key in ("cache_hit_blocks", "n_done", "pages_used", "session_scans", "rounds",
+                "searches", "eliminated"):
+        assert ts[key] == js[key], key
+    assert ts["cache_hit_blocks"] > 0 and ts["n_done"] == 5
+
+
+def test_engine_indexes_equal_jax(engines):
+    jeng, teng = engines
+    for name in ("index", "sessions"):
+        t, j = getattr(teng, name).tree, getattr(jeng, name).tree
+        assert t.items() == j.items(), name
+        check_invariants(t.state, t.cfg)
+        records = [json.loads(x) for x in t.recorder.dump_records()]
+        assert records == [json.loads(x) for x in j.recorder.dump_records()], name
+
+
+def test_pipelined_overlap_is_recorded(engines):
+    _, teng = engines
+    h = teng.metrics.histogram_summary("tick_overlap_frac")
+    if teng.pipelined:
+        assert h["count"] == teng.metrics.value("ticks") and h["max"] > 0.0
+    else:
+        assert h["count"] == 0
+
+
+def test_engine_refuses_without_a_card(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ServeEngine(ModelConfig(**TINY), max_batch=1, s_max=8, n_pages=4)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        pages.PrefixIndex()
+
+
+def test_launcher_runs_on_the_cpu(capsys):
+    from repro_torch.launch import serve
+
+    serve.main(["--requests", "3", "--max-new", "2"], device="cpu")
+    out = capsys.readouterr().out
+    assert "completed 3 requests" in out
+    stats = json.loads(out[: out.rindex("}") + 1])
+    assert stats["n_done"] == 3
