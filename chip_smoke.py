@@ -5,13 +5,14 @@ Run from the root of a checkout on a machine with one CUDA card:
 
     python3 chip_smoke.py
 
-It builds the port's five hand-written CUDA kernels from ``src/repro_torch/
+It builds the port's seven hand-written CUDA kernels from ``src/repro_torch/
 csrc`` (one ``nvcc`` per source, in parallel, into ``build/``), then:
 
 1. prints the card's name and power limit;
 2. drives the port's tree path, ``ABTree.apply_round`` in elim mode on one
    tree at the paper's b = 11 with int64 keys and values: prefill of half
-   the key range in insert rounds of 65,536 lanes, then warm-up and measured
+   the key range in insert rounds (a first one of 4,096 lanes into the empty
+   tree, then rounds of 65,536 lanes), then warm-up and measured
    mixed rounds of 16,384 lanes (Zipf(1.0) keys; 45% insert, 45% delete,
    5% find, 5% range with span uniform in [1, 64]; scan cap 128).  Every
    round is checked lane for lane against ``DictOracle.apply_mixed_round``
@@ -28,15 +29,28 @@ csrc`` (one ``nvcc`` per source, in parallel, into ``build/``), then:
    publish / evict / sweep calls holds (every lookup and sweep is checked
    against it as it happens); the prefix cache must be hit.  A third, short
    run with the phase tracer on gives the per-tick breakdown;
-4. replays one main-path call of each kernel: kernel and plain PyTorch
-   version on the same CUDA tensors must agree (the tree kernels bit for
-   bit; decode attention within 2 ulps of its dtype at the output's largest
-   magnitude, on the serve phase's tensors and on seeded random ones of the
-   same shapes); both are timed, beside the least time the card needs for
-   the call (its bytes at 3.35 TB/s or its operations at the peak for their
-   type, whichever is longer) and, where one PyTorch call computes a
-   comparable function, that call's time;
-5. prints ``{"ok": true, "device": {...}}`` as its last line.
+4. drives the training path: the ``Trainer`` that ``python -m
+   repro_torch.launch.train --arch qwen2-0.5b`` builds (full width and
+   depth, the launcher's warmup-cosine schedule), batch 8 x 1,024 tokens of
+   the synthetic Zipf stream, 20 steps, checkpoint in a temporary directory,
+   launch counts zeroed before it and read after it (flash attention: 24 a
+   forward, none in the backward), then one step under ``torch.profiler``
+   for the device's busy time; 8 steps at a constant 1e-3 on one fixed
+   batch, whose loss must fall; and a crash at step 6, a restart and a
+   resume from step 4 to 12 on the reduced 2-layer config;
+5. replays one main-path call of each kernel: kernel and plain PyTorch
+   version on the same CUDA tensors must agree (the tree kernels and the
+   leaf probe bit for bit; the two attention kernels within 2 ulps of
+   their dtype at the output's largest magnitude, on the path's tensors and
+   on seeded random ones of the same shapes; flash attention also windowed,
+   ragged and non-causal, and its gradients equal to the plain version's
+   autograd); the leaf probe, which no path calls, runs over the leaf rows
+   the tree path's search reached and must give K1's own answers; all are
+   timed, beside the least time the card needs for the call (its bytes at
+   3.35 TB/s or its operations at the peak for their type, whichever is
+   longer) and, where one PyTorch call computes a comparable function, that
+   call's time;
+6. prints ``{"ok": true, "device": {...}}`` as its last line.
 
 Any failed check raises, so the script exits non-zero.  Without a CUDA card,
 or without the repository's ``src/repro_torch`` beside it, it exits 2 and
@@ -56,6 +70,11 @@ import numpy as np
 ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
 PREFILL_BATCH = 65_536  # lanes per prefill insert round
+# the first prefill round goes into an empty tree, where the retry passes
+# grow with the round's width (about one pass per 6 lanes: 65,536 lanes took
+# ~11,000 passes and ~275 s); a narrow first round seeds the leaves, and the
+# wide rounds after it spread over them
+PREFILL_FIRST_BATCH = 4_096
 BATCH = 16_384  # lanes per mixed round
 WARMUP, ROUNDS, TRACED_ROUNDS, RECORDER_OFF_ROUNDS = 3, 20, 3, 5
 # keys are drawn from [0, KEY_RANGE) and half of it is prefilled; if the run
@@ -64,12 +83,23 @@ WARMUP, ROUNDS, TRACED_ROUNDS, RECORDER_OFF_ROUNDS = 3, 20, 3, 5
 KEY_RANGE = 2_000_000
 SEED = 0
 TREE_KERNELS = ("descend_probe", "frontier_compact", "elim_combine", "range_scan")
+SERVE_KERNELS = TREE_KERNELS + ("decode_attention",)
 # serve phase: qwen2-0.5b at full width and depth
 SERVE_ARCH = "qwen2-0.5b"
 SERVE_ENGINE = dict(max_batch=8, s_max=1024, n_pages=32)
 SERVE_REQUESTS, SERVE_PROMPT, SERVE_MAX_NEW, SERVE_HOT_FRAC = 16, 512, 32, 0.7
 TRACED_REQUESTS, TRACED_MAX_NEW = 2, 8
 STEP_TIMING_STEPS = 20
+# train phase: the Trainer on qwen2-0.5b at full width and depth, as
+# ``python -m repro_torch.launch.train --arch qwen2-0.5b`` builds it
+TRAIN_ARCH = "qwen2-0.5b"
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 8, 1024, 20
+LOSS_FALL_STEPS, LOSS_FALL_LR = 8, 1e-3  # constant_lr on one fixed batch
+RESUME_LAYERS, RESUME_FAIL_AT, RESUME_CKPT_EVERY, RESUME_STEPS = 2, 6, 4, 12
+RESUME_BATCH, RESUME_SEQ = 4, 64
+FLASH_WINDOW, FLASH_RAGGED_S = 256, 1000  # extra B6 replays: windowed, ragged non-causal
+# B6's limit against its plain version: as B7's (f32: a fixed 1e-5)
+FLASH_ULPS, FLASH_F32_TOL = 2, 1e-5
 # B7's limit against its plain version, in ulps of the output's dtype at the
 # output's largest magnitude: both accumulate in f32 and round once, so they
 # differ by summation order and that one rounding
@@ -144,8 +174,9 @@ def run_main_path(torch, core, lib, zipf_keys):
     n_prefill = KEY_RANGE // 2
     prefill = rng.choice(KEY_RANGE, size=n_prefill, replace=False).astype(np.int64)
     t0 = time.perf_counter()
-    for i in range(0, n_prefill, PREFILL_BATCH):
-        chunk = prefill[i : i + PREFILL_BATCH]
+    starts = [0] + list(range(PREFILL_FIRST_BATCH, n_prefill, PREFILL_BATCH))
+    for i, j in zip(starts, starts[1:] + [n_prefill]):
+        chunk = prefill[i:j]
         ops = np.full(chunk.size, core.OP_INSERT, np.int32)
         vals = rng.integers(0, 1 << 40, chunk.size).astype(np.int64)
         out = tree.apply_round(ops, chunk, vals)
@@ -213,7 +244,8 @@ def run_main_path(torch, core, lib, zipf_keys):
     summary = {
         "config": {"b": cfg.b, "a": cfg.a, "max_height": cfg.max_height,
                    "key_range": KEY_RANGE, "prefill_keys": n_prefill,
-                   "prefill_batch": PREFILL_BATCH, "batch": BATCH,
+                   "prefill_batch": PREFILL_BATCH, "prefill_first_batch": PREFILL_FIRST_BATCH,
+                   "batch": BATCH,
                    "warmup": WARMUP, "rounds": ROUNDS, "scan_cap": 128,
                    "mix": "45% insert, 45% delete, 5% find, 5% range span U[1,64], Zipf(1.0)"},
         "prefill_s": prefill_s,
@@ -458,7 +490,7 @@ def run_serve_path(torch, core, lib, device, cfg):
         torch.cuda.synchronize(device)
         torch.cuda.reset_peak_memory_stats(device)
     init_s = time.perf_counter() - t0
-    counters = {n: lib.counter(n) for n in lib.SOURCES}
+    counters = {n: lib.counter(n) for n in SERVE_KERNELS}
     attn = counters["decode_attention"]
 
     lib.reset_counts()
@@ -524,6 +556,185 @@ def run_serve_path(torch, core, lib, device, cfg):
         "decode_step": step,
         "traced": {"requests": TRACED_REQUESTS, "max_new": TRACED_MAX_NEW,
                    "ticks": traced["ticks"], "ms_total": dict(spans), "count": dict(counts)},
+    }
+    return summary, recorded
+
+
+# ----------------------------------------------------------------------------
+# train path
+# ----------------------------------------------------------------------------
+
+
+def device_busy_ms(torch, prof, top: int = 12):
+    """Device time inside a profiled window: the union of the intervals of
+    every device-side event (kernels, copies, fills) the profiler saw, their
+    count, and the ``top`` event names by summed device ms."""
+    from torch.autograd import DeviceType
+
+    events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    spans = sorted((e.time_range.start, e.time_range.end) for e in events)
+    busy, end = 0.0, float("-inf")
+    for lo, hi in spans:
+        if hi > end:
+            busy += hi - max(lo, end)
+            end = hi
+    by_name = collections.Counter()
+    for e in events:
+        by_name[e.name[:80]] += (e.time_range.end - e.time_range.start) / 1e3
+    return busy / 1e3, len(spans), dict(by_name.most_common(top))
+
+
+def dir_bytes(path: Path) -> int:
+    return sum(f.stat().st_size for f in path.rglob("*") if f.is_file())
+
+
+def run_train_path(torch, lib, device):
+    """The training path at full qwen2-0.5b: (a) the launcher's Trainer,
+    timed, with a profiled step after it; (b) the loss falling on one
+    fixed batch; (c) crash, restart and resume on the reduced config.
+    Returns the summary and the arguments of the timed run's last
+    flash-attention launch."""
+    import tempfile
+
+    from repro_torch.configs import get_config
+    from repro_torch.data import make_data_iter
+    from repro_torch.launch import train as launch
+    from repro_torch.models import backbone, reduced
+    from repro_torch.models.params import init_params
+    from repro_torch.optim import adamw_init, constant_lr
+    from repro_torch.train import SimulatedFailure, Trainer, TrainerConfig, make_train_step
+
+    flash = lib.counter("flash_attention")
+    cfg = get_config(TRAIN_ARCH)
+    on_card = device.type == "cuda"
+    sync = (lambda: torch.cuda.synchronize(device)) if on_card else (lambda: None)
+    tokens_per_step = TRAIN_BATCH * TRAIN_SEQ
+    to_dev = lambda batch: {k: torch.from_numpy(x).to(device) for k, x in batch.items()}
+
+    # (a) the Trainer as the launcher builds it, on the launcher's schedule
+    with tempfile.TemporaryDirectory() as ckpt:
+        argv = ["--arch", TRAIN_ARCH, "--steps", str(TRAIN_STEPS), "--batch", str(TRAIN_BATCH),
+                "--seq", str(TRAIN_SEQ), "--ckpt", ckpt]
+        t0 = time.perf_counter()
+        trainer = launch.build_trainer(launch.parse_args(argv), device)
+        sync()
+        init_s = time.perf_counter() - t0
+        if trainer.resumed_from is not None:
+            raise AssertionError("train: a fresh checkpoint directory resumed")
+        trainer.tcfg.log_every = 1  # every step's loss into the history
+        saves = []
+        save = trainer.ckpt.save
+
+        def timed_save(step, state, extra=None):
+            t1 = time.perf_counter()
+            save(step, state, extra)
+            saves.append({"step": step, "s": time.perf_counter() - t1,
+                          "bytes": dir_bytes(Path(ckpt) / f"step_{step:08d}")})
+
+        trainer.ckpt.save = timed_save
+        if on_card:
+            torch.cuda.reset_peak_memory_stats(device)
+        flash.calls = collections.deque(maxlen=1)
+        lib.reset_counts()
+        t0 = time.perf_counter()
+        out = trainer.run()
+        run_s = time.perf_counter() - t0
+        launches = {n: lib.counter(n).launches for n in lib.SOURCES}
+        recorded = flash.calls[-1]
+        flash.calls = None
+        peak = int(torch.cuda.max_memory_allocated(device)) if on_card else None
+        log(f"train: {TRAIN_STEPS} steps in {run_s:.1f}s")
+        losses = [h["loss"] for h in out["history"]]
+        if out["final_step"] != TRAIN_STEPS or len(losses) != TRAIN_STEPS:
+            raise AssertionError(f"train: ended at step {out['final_step']} with {len(losses)} losses")
+        if not all(np.isfinite(losses)):
+            raise AssertionError(f"train: a loss is not finite: {losses}")
+        if launches["flash_attention"] != cfg.n_layers * TRAIN_STEPS:
+            raise AssertionError(
+                f"train: flash_attention launched {launches['flash_attention']} times in "
+                f"{TRAIN_STEPS} steps, not {cfg.n_layers} a forward (the backward launches none)")
+        steps = np.asarray([h["sec_per_step"] for h in out["history"]][1:])  # step 1 warms up
+
+        # one more step under the profiler: device time against its wall time
+        batch = to_dev(next(make_data_iter(cfg, TRAIN_BATCH, TRAIN_SEQ, start_step=TRAIN_STEPS)))
+        before = flash.launches
+        sync()
+        activities = [torch.profiler.ProfilerActivity.CPU]
+        if on_card:
+            activities.append(torch.profiler.ProfilerActivity.CUDA)
+        with torch.profiler.profile(activities=activities) as prof:
+            t0 = time.perf_counter()
+            step_out = trainer.step_fn(trainer.params, trainer.opt, batch, TRAIN_STEPS)
+            float(step_out.metrics["loss"])
+            profiled_wall_ms = (time.perf_counter() - t0) * 1e3
+        if flash.launches - before != cfg.n_layers:
+            raise AssertionError(f"train: the profiled step launched flash_attention "
+                                 f"{flash.launches - before} times, not {cfg.n_layers}")
+        busy_ms, n_events, top_events = device_busy_ms(torch, prof)
+        del trainer, step_out, prof
+    p50_ms = float(np.percentile(steps, 50)) * 1e3
+    timed = {
+        "config": {"arch": TRAIN_ARCH, "layers": cfg.n_layers, "d_model": cfg.d_model,
+                   "heads": cfg.n_heads, "kv_heads": cfg.n_kv, "d_head": cfg.d_head,
+                   "d_ff": cfg.d_ff, "vocab": cfg.vocab, "dtype": cfg.dtype, "remat": cfg.remat,
+                   "batch": TRAIN_BATCH, "seq": TRAIN_SEQ, "steps": TRAIN_STEPS,
+                   "schedule": "warmup_cosine, peak 3e-4 (the launcher's)", "seed": SEED},
+        "init_s": init_s,
+        "run_s": run_s,
+        "losses": losses,
+        "sec_per_step": steps.tolist(),
+        "sec_per_step_p50": float(np.percentile(steps, 50)),
+        "sec_per_step_p99": float(np.percentile(steps, 99)),
+        "tokens_per_s": tokens_per_step * len(steps) / float(steps.sum()),
+        "max_memory_allocated": peak,
+        "checkpoints": saves,
+        "launches": launches,
+        "profiled_step": {"wall_ms": profiled_wall_ms, "device_busy_ms": busy_ms,
+                          "device_events": n_events, "top_device_ms": top_events,
+                          "idle_share_of_profiled_step": 1.0 - busy_ms / profiled_wall_ms,
+                          "idle_share_vs_p50_step": 1.0 - busy_ms / p50_ms},
+    }
+    log(f"train timed: p50 {p50_ms:.1f} ms/step, device busy {busy_ms:.1f} ms")
+
+    # (b) the loss falls: constant_lr on one fixed batch
+    params = init_params(backbone.model_spec(cfg), device, SEED)
+    opt = adamw_init(params)
+    step_fn = make_train_step(cfg, lr_peak=LOSS_FALL_LR, schedule=constant_lr)
+    batch = to_dev(next(make_data_iter(cfg, TRAIN_BATCH, TRAIN_SEQ, seed=SEED)))
+    fall = []
+    for i in range(LOSS_FALL_STEPS):
+        o = step_fn(params, opt, batch, i)
+        params, opt = o.params, o.opt_state
+        fall.append(float(o.metrics["loss"]))
+    del params, opt, o
+    if not all(np.isfinite(fall)) or not fall[-1] < fall[0]:
+        raise AssertionError(f"train: the loss did not fall on a fixed batch: {fall}")
+    log(f"train loss on a fixed batch: {fall[0]:.4f} -> {fall[-1]:.4f}")
+
+    # (c) crash, restart, resume on the reduced config, on the card
+    rcfg = reduced(get_config(TRAIN_ARCH), n_layers=RESUME_LAYERS)
+    mk_iter = lambda step: make_data_iter(rcfg, RESUME_BATCH, RESUME_SEQ, start_step=step)
+    with tempfile.TemporaryDirectory() as d:
+        tc = dict(ckpt_dir=d, max_steps=RESUME_STEPS, ckpt_every=RESUME_CKPT_EVERY)
+        try:
+            Trainer(rcfg, TrainerConfig(fail_at_step=RESUME_FAIL_AT, **tc), mk_iter, device).run()
+        except SimulatedFailure:
+            pass
+        else:
+            raise AssertionError("train: the injected failure did not fire")
+        t2 = Trainer(rcfg, TrainerConfig(**tc), mk_iter, device)
+        resumed = t2.run()
+    want_from = (RESUME_FAIL_AT - 1) // RESUME_CKPT_EVERY * RESUME_CKPT_EVERY
+    if t2.resumed_from != want_from or resumed["final_step"] != RESUME_STEPS \
+            or not np.isfinite(resumed["final_loss"]):
+        raise AssertionError(f"train: resume from {t2.resumed_from} ended {resumed}")
+    summary = {
+        "timed": timed,
+        "loss_fall": {"steps": LOSS_FALL_STEPS, "lr": LOSS_FALL_LR, "losses": fall},
+        "resume": {"layers": RESUME_LAYERS, "fail_at": RESUME_FAIL_AT,
+                   "resumed_from": t2.resumed_from, "final_step": resumed["final_step"],
+                   "final_loss": resumed["final_loss"]},
+        "launches": launches,
     }
     return summary, recorded
 
@@ -631,9 +842,100 @@ def descend_bytes(torch, pool_keys, children, is_leaf, root, queries, max_height
     return pool + queries.numel() * (8 + 4 + 1 + 4 + 8) + s * 4
 
 
-def kernel_report(torch, mods, summary, recorded, serve_summary, serve_recorded):
+def flash_tol(torch, want) -> float:
+    """B6's limit against its plain version for an output like ``want``."""
+    if want.dtype == torch.float32:
+        return FLASH_F32_TOL
+    return ulps_at_max(torch, want, FLASH_ULPS)
+
+
+def flash_replays(torch, fa_kernel, fa_ops, fa_ref, recorded):
+    """B6 against its plain version on seeded random q/k/v at the shapes of
+    the recorded call (as recorded, with a window of FLASH_WINDOW, and
+    ragged at FLASH_RAGGED_S rows without causality), and the Function's
+    gradients against autograd through the plain version on the recorded
+    tensors and a seeded cotangent (bit for bit: the backward is that
+    autograd).  Returns the cases and the gradients' max |err|."""
+    q, k, v, kw = recorded
+    q, k, v = (x.detach() for x in (q, k, v))  # recorded inside the autograd Function
+    b, h, sq, d = q.shape
+    kh = k.shape[1]
+    gen = torch.Generator(device=q.device).manual_seed(SEED)
+
+    def rand_like(shape, dtype):
+        return torch.randn(shape, generator=gen, device=q.device).to(dtype)
+
+    cases = {}
+    for case, (s_len, causal, window) in {
+        "random": (sq, kw["causal"], kw["window"]),
+        "window": (sq, kw["causal"], FLASH_WINDOW),
+        "ragged": (FLASH_RAGGED_S, False, 0),
+    }.items():
+        rq, rk, rv = (rand_like((b, n, s_len, d), q.dtype) for n in (h, kh, kh))
+        opts = dict(causal=causal, window=window, sm_scale=kw["sm_scale"])
+        r_got = fa_kernel.flash_attention_cuda(rq, rk, rv, **opts)
+        r_want = fa_ref.attention_ref(rq, rk, rv, **opts)
+        r_err, r_tol = max_abs_err(torch, (r_got,), (r_want,)), flash_tol(torch, r_want)
+        if r_err > r_tol:
+            raise AssertionError(
+                f"flash_attention: kernel differs from its plain version ({case}: max |err| "
+                f"{r_err} > {r_tol}, max |want| {float(r_want.abs().max())})")
+        cases[case] = {"s": s_len, "causal": causal, "window": window, "max_abs_err": r_err,
+                       "tolerance": r_tol, "max_abs_want": float(r_want.abs().max())}
+    cot = rand_like(q.shape, q.dtype)
+    grads = []
+    for fn in (fa_ops.flash_attention, lambda *a: fa_ref.attention_ref(*a[:3], **kw)):
+        xs = [x.detach().clone().requires_grad_() for x in (q, k, v)]
+        out = fn(*xs, kw["causal"], kw["window"], kw["sm_scale"])
+        grads.append(torch.autograd.grad(out, xs, cot))
+    grad_err = max_abs_err(torch, grads[0], grads[1])
+    if grad_err != 0.0:
+        raise AssertionError(f"flash_attention: the Function's gradients differ from the plain "
+                             f"version's autograd (max |err| {grad_err})")
+    return cases, grad_err
+
+
+def leaf_probe_replay(torch, td_kernel, lp_kernel, lp_ops, descend_call):
+    """B5 standalone (no path of the system calls it): the public wrapper
+    over the leaf rows that K1 reached in the tree path's recorded search
+    call, counted as its own run, then the kernel held lane for lane against
+    K1's own probe (where K1 found the key, the same slot and value; else
+    slot -1 and value 0).  Returns the rows, queries, the kernel's output and
+    the wrapper's launch count."""
+    from types import SimpleNamespace
+
+    from repro_torch.core.abtree import _leaf_rows
+
+    pk, pv, ch, lf, root, q, kw = descend_call
+    leaf, found, slot, val = td_kernel.descend_probe_cuda(pk, pv, ch, lf, root, q, **kw)
+    nb = pk.shape[2]
+    # leaf -1 (a NULL child) names the scratch row N-1; _leaf_rows reads the
+    # pool's rows from ``keys`` and its shard count from ``size``'s shape
+    rows_g = _leaf_rows(SimpleNamespace(keys=pk, size=lf), leaf).reshape(-1)
+    lk = pk.reshape(-1, nb)[rows_g].contiguous()
+    lv = pv.reshape(-1, nb)[rows_g].contiguous()
+    lq = q.reshape(-1).contiguous()
+    probe = lp_kernel.LEAF_PROBE
+    probe.launches = 0
+    lp_ops.leaf_probe(lk, lv, lq)
+    launches = probe.launches
+    got = lp_kernel.leaf_probe_cuda(lk, lv, lq)
+    found, slot, val = found.reshape(-1), slot.reshape(-1), val.reshape(-1)
+    want_slot = torch.where(found, slot, torch.full_like(slot, -1))
+    want_val = torch.where(found, val, torch.zeros_like(val))
+    if not (torch.equal(got[0], want_slot) and torch.equal(got[1], want_val)):
+        bad = int(((got[0] != want_slot) | (got[1] != want_val)).nonzero()[0])
+        raise AssertionError(
+            f"leaf_probe: lane {bad} gives ({int(got[0][bad])}, {int(got[1][bad])}), "
+            f"K1 ({int(want_slot[bad])}, {int(want_val[bad])})")
+    return lk, lv, lq, got, launches
+
+
+def kernel_report(torch, mods, summary, recorded, serve_summary, serve_recorded,
+                  train_summary, train_recorded):
     """Replay one main-path call per kernel against its plain version."""
-    td_kernel, td_ref, td_ops, ec_kernel, ec_ref, rs_kernel, rs_ref, da_kernel, da_ref = mods
+    (td_kernel, td_ref, td_ops, ec_kernel, ec_ref, rs_kernel, rs_ref, da_kernel, da_ref,
+     fa_kernel, fa_ops, fa_ref, lp_kernel, lp_ops, lp_ref) = mods
     rows = []
 
     def entry(name, source, replaces, got, want, k_fn, p_fn, nbytes, shapes, lib_ms=None,
@@ -647,7 +949,8 @@ def kernel_report(torch, mods, summary, recorded, serve_summary, serve_recorded)
         rows.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": summary["launches"][name] if launches is None else launches,
-            "serve_launches": serve_summary["launches"][name],
+            "serve_launches": serve_summary["launches"].get(name, 0),
+            "train_launches": train_summary["launches"].get(name, 0),
             "max_abs_err": err, "tolerance": tol, "equal": err == 0.0,
             "ms": k_ms, "kernel_ms": k_ms, "call_ms": time_ms(torch, k_fn, 200),
             "plain_ms": graph_ms(torch, p_fn), "plain_call_ms": time_ms(torch, p_fn, 20),
@@ -754,6 +1057,54 @@ def kernel_report(torch, mods, summary, recorded, serve_summary, serve_recorded)
         extra={"max_abs_want": float(want.abs().max()), "random_max_abs_err": r_err,
                "random_tolerance": r_tol, "random_max_abs_want": float(r_want.abs().max())},
     )
+
+    # B6 flash_attention: the train phase's last forward call (and, in
+    # flash_replays, seeded random, windowed and ragged cases and the
+    # gradients)
+    q, k, v, kw = train_recorded
+    q, k, v = (x.detach() for x in (q, k, v))  # recorded inside the autograd Function
+    b, h, sq, d = q.shape
+    cases, grad_err = flash_replays(torch, fa_kernel, fa_ops, fa_ref, train_recorded)
+    want = fa_ref.attention_ref(q, k, v, **kw)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    lib_ms = graph_ms(torch, lambda: sdpa(q, k, v, is_causal=True, enable_gqa=True))
+    causal_ops = 2.0 * b * h * sq * sq * d  # the causal half of 4·B·H·S²·D
+    entry(
+        "flash_attention", "src/repro_torch/csrc/flash_attention.cu",
+        "src/repro/kernels/flash_attention/kernel.py:94",
+        (fa_kernel.flash_attention_cuda(q, k, v, **kw),), (want,),
+        lambda: fa_kernel.flash_attention_cuda(q, k, v, **kw),
+        lambda: fa_ref.attention_ref(q, k, v, **kw),
+        (2 * q.numel() + 2 * k.numel()) * q.element_size(),
+        {"q": list(q.shape), "kv": list(k.shape), "dtype": str(q.dtype), **kw},
+        lib_ms=lib_ms, tol=flash_tol(torch, want), launches=train_summary["launches"]["flash_attention"],
+        ops=causal_ops, ops_per_s=OPS_PER_S[str(q.dtype)],
+        extra={"max_abs_want": float(want.abs().max()), "replays": cases,
+               "grad_max_abs_err": grad_err,
+               "library": "scaled_dot_product_attention(is_causal=True, enable_gqa=True)"},
+    )
+    del want
+
+    # B5 leaf_probe, standalone over the tree path's leaf rows
+    lk, lv, lq, (p_slot, p_val), probe_launches = leaf_probe_replay(
+        torch, td_kernel, lp_kernel, lp_ops, recorded["descend_probe"][0])
+    nb = lk.shape[1]
+    hit = p_slot >= 0
+    compared = torch.where(hit, p_slot + 1, nb).sum()
+    entry(
+        "leaf_probe", "src/repro_torch/csrc/leaf_probe.cu",
+        "src/repro/kernels/leaf_probe/kernel.py:46",
+        (p_slot, p_val), lp_ref.leaf_probe_ref(lk, lv, lq),
+        lambda: lp_kernel.leaf_probe_cuda(lk, lv, lq),
+        lambda: lp_ref.leaf_probe_ref(lk, lv, lq),
+        int(compared) * lk.element_size() + int(hit.sum()) * lv.element_size()
+        + lq.numel() * (lq.element_size() + 4 + lv.element_size()),
+        {"rows": list(lk.shape), "dtype": str(lk.dtype)},
+        launches=probe_launches,
+        extra={"launched_by": "standalone: ops.leaf_probe over the tree path's leaf rows "
+                              "(no path of the system calls it)",
+               "hits": int(hit.sum()), "equal_to_descend_probe": True},
+    )
     for row in rows:
         if row["launches"] <= 0:
             raise AssertionError(f"{row['name']}: never launched on the main path")
@@ -778,6 +1129,8 @@ def main() -> int:
     from repro_torch.kernels import _lib as lib
     from repro_torch.kernels.decode_attention import kernel as da_kernel, ref as da_ref
     from repro_torch.kernels.elim_combine import kernel as ec_kernel, ref as ec_ref
+    from repro_torch.kernels.flash_attention import kernel as fa_kernel, ops as fa_ops, ref as fa_ref
+    from repro_torch.kernels.leaf_probe import kernel as lp_kernel, ops as lp_ops, ref as lp_ref
     from repro_torch.kernels.range_scan import kernel as rs_kernel, ref as rs_ref
     from repro_torch.kernels.tree_descend import kernel as td_kernel, ops as td_ops, ref as td_ref
 
@@ -806,10 +1159,15 @@ def main() -> int:
     )
     print(json.dumps({"serve_path": serve_summary, "card": smi}), flush=True)
 
-    # 4. every kernel against its plain version at main-path shapes
+    # 4. the training path at full width
+    train_summary, train_recorded = run_train_path(torch, lib, torch.device("cuda"))
+    print(json.dumps({"train_path": train_summary, "card": smi}), flush=True)
+
+    # 5. every kernel against its plain version at main-path shapes
     rows = kernel_report(
-        torch, (td_kernel, td_ref, td_ops, ec_kernel, ec_ref, rs_kernel, rs_ref, da_kernel, da_ref),
-        summary, recorded, serve_summary, serve_recorded,
+        torch, (td_kernel, td_ref, td_ops, ec_kernel, ec_ref, rs_kernel, rs_ref, da_kernel, da_ref,
+                fa_kernel, fa_ops, fa_ref, lp_kernel, lp_ops, lp_ref),
+        summary, recorded, serve_summary, serve_recorded, train_summary, train_recorded,
     )
     print(json.dumps({"kernels": rows}), flush=True)
     print(smi, flush=True)

@@ -26,6 +26,7 @@ import numpy as np
 import torch
 
 from repro_torch.core import elimination as elim
+from repro_torch.kernels import _lib
 from repro_torch.kernels.tree_descend.ops import frontier_compact
 from repro_torch.obs.metrics import (
     MetricsRegistry,
@@ -126,10 +127,12 @@ def grow_pool(state: TreeState, pad_n: int) -> TreeState:
     return TreeState(**out)
 
 
-def make_tree(cfg: TreeConfig, n_shards: int = 1, device="cpu") -> TreeState:
+def make_tree(cfg: TreeConfig, n_shards: int = 1, device=None) -> TreeState:
     """A fresh stacked state: per shard ``capacity + 1`` rows, the last one
-    the write-off SCRATCH row that absorbs every masked-out scatter lane."""
+    the write-off SCRATCH row that absorbs every masked-out scatter lane.
+    ``device`` defaults to the CUDA card and raises without one."""
     s, n, b = n_shards, cfg.capacity + 1, cfg.b
+    device = _lib.resolve_device(device, "make_tree")
 
     def full(shape, value, dtype):
         return torch.full(shape, value, dtype=dtype, device=device)
@@ -810,14 +813,7 @@ class ABTree(RegistryBackedCounters):
             raise ValueError(f"unknown mode {mode!r}")
         if not 2 <= cfg.a <= cfg.b // 2:
             raise ValueError("(a,b) requires 2 ≤ a ≤ b/2")
-        if device is None:
-            if not torch.cuda.is_available():
-                raise RuntimeError(
-                    "ABTree: no CUDA device; pass device='cpu' to run the plain "
-                    "versions of the kernels on the host"
-                )
-            device = "cuda"
-        self.device = torch.device(device)
+        self.device = _lib.resolve_device(device, "ABTree")
         self.cfg = cfg
         self.mode = mode
         # unified-engine holder protocol: the single tree is a one-shard

@@ -12,8 +12,11 @@ layer leaves; a tied unembedding reads ``embed/tok``, so there is no second
 copy to carry) and returns the same tree of tensors on ``device``;
 ``cache_from_numpy`` takes the decode cache (``{"layers": KVCache(k, v)}``
 with numpy leaves).  ``params_to_numpy`` / ``cache_to_numpy`` go the other
-way.  bfloat16 arrays (``ml_dtypes.bfloat16``, as ``np.asarray`` gives them
-for JAX's bf16) cross as their 16-bit patterns.
+way.  ``opt_state_from_numpy`` / ``opt_state_to_numpy`` carry AdamW's
+``OptState(m, v, count)`` (a NamedTuple or a dict of those fields), so a
+JAX ``(params, OptState)`` crosses whole.  bfloat16 arrays
+(``ml_dtypes.bfloat16``, as ``np.asarray`` gives them for JAX's bf16) cross
+as their 16-bit patterns (``tensor_from_numpy`` / ``tensor_to_numpy``).
 
 The caller converts the JAX arrays to numpy, so this module imports no JAX.
 """
@@ -26,6 +29,7 @@ import torch
 
 from repro_torch.core.abtree import TreeState, TreeStats
 from repro_torch.models.attention import KVCache
+from repro_torch.optim.adamw import OptState
 
 _DTYPES = dict(
     keys=torch.int64, vals=torch.int64, children=torch.int32, parent=torch.int32,
@@ -78,16 +82,18 @@ def _npdtype(dt: torch.dtype):
     }[dt]
 
 
-def _tensor(a, device) -> torch.Tensor:
+def tensor_from_numpy(a, device="cpu") -> torch.Tensor:
+    """One array as a tensor on ``device``."""
     a = np.array(a)  # a writable copy: JAX hands out read-only buffers
     if a.dtype.name == "bfloat16":
         return torch.from_numpy(a.view(np.int16)).view(torch.bfloat16).to(device)
     return torch.from_numpy(a).to(device)
 
 
-def _array(t: torch.Tensor) -> np.ndarray:
-    """A copy: the port updates caches in place."""
-    t = t.detach().cpu().clone()
+def tensor_to_numpy(t: torch.Tensor) -> np.ndarray:
+    """One tensor as a numpy array: a copy, since the port updates caches
+    in place."""
+    t = t.detach().to("cpu", copy=True)
     if t.dtype == torch.bfloat16:
         import ml_dtypes  # only a bf16 tensor needs it
 
@@ -99,14 +105,14 @@ def params_from_numpy(tree, device="cpu"):
     """The port's param tree from the JAX package's, leaf for leaf."""
     if isinstance(tree, dict):
         return {k: params_from_numpy(v, device) for k, v in tree.items()}
-    return _tensor(tree, device)
+    return tensor_from_numpy(tree, device)
 
 
 def params_to_numpy(tree):
     """Nested dicts of numpy arrays from the port's param tree."""
     if isinstance(tree, dict):
         return {k: params_to_numpy(v) for k, v in tree.items()}
-    return _array(tree)
+    return tensor_to_numpy(tree)
 
 
 def _kv_parts(kv):
@@ -121,13 +127,32 @@ def cache_from_numpy(cache, device="cpu"):
     out = {}
     for name, kv in cache.items():
         k, v = _kv_parts(kv)
-        out[name] = KVCache(_tensor(k, device), None if v is None else _tensor(v, device))
+        out[name] = KVCache(tensor_from_numpy(k, device),
+                            None if v is None else tensor_from_numpy(v, device))
     return out
 
 
 def cache_to_numpy(cache):
     """``{name: {"k": array, "v": array}}`` from the port's decode cache."""
     return {
-        name: {"k": _array(kv.k), "v": None if kv.v is None else _array(kv.v)}
+        name: {"k": tensor_to_numpy(kv.k),
+               "v": None if kv.v is None else tensor_to_numpy(kv.v)}
         for name, kv in cache.items()
     }
+
+
+def opt_state_from_numpy(state, device="cpu") -> OptState:
+    """The port's ``OptState`` from the JAX package's (``m`` and ``v`` param
+    trees of numpy arrays, ``count`` a 0-d int32 array)."""
+    parts = _as_dict(state)
+    return OptState(
+        m=params_from_numpy(parts["m"], device),
+        v=params_from_numpy(parts["v"], device),
+        count=tensor_from_numpy(parts["count"], device),
+    )
+
+
+def opt_state_to_numpy(state: OptState) -> Dict[str, object]:
+    """``{"m": tree, "v": tree, "count": array}`` of numpy arrays."""
+    return {"m": params_to_numpy(state.m), "v": params_to_numpy(state.v),
+            "count": tensor_to_numpy(state.count)}

@@ -35,7 +35,10 @@ import torch
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
-SOURCES = ("descend_probe", "frontier_compact", "elim_combine", "range_scan", "decode_attention")
+SOURCES = (
+    "descend_probe", "frontier_compact", "elim_combine", "range_scan", "decode_attention",
+    "flash_attention", "leaf_probe",
+)
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC",
@@ -137,6 +140,20 @@ def on_cuda(t: torch.Tensor) -> bool:
     """Dispatch test of every ``ops`` wrapper: a CUDA tensor goes to the
     kernel (or raises), a CPU tensor to the plain version."""
     return t.is_cuda
+
+
+def resolve_device(device, who: str) -> torch.device:
+    """``device``, or the CUDA card when it is None: an entry point of the
+    port runs on the card unless the caller asks for the CPU, and raises
+    when there is no card instead of dropping to the CPU on its own."""
+    if device is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                f"{who}: no CUDA device; pass device='cpu' to run the plain "
+                "versions of the kernels on the host"
+            )
+        device = "cuda"
+    return torch.device(device)
 
 
 def require(t: torch.Tensor, name: str, dtype, shape, device) -> None:

@@ -1,5 +1,12 @@
-"""GQA attention for decoding (port of the GQA part of
+"""GQA attention, training and decoding (port of the GQA part of
 ``src/repro/models/attention.py``).
+
+The training path (``gqa_train``) attends over the whole sequence through
+the flash-attention wrapper (``kernels/flash_attention``): on CUDA tensors
+its hand-written forward kernel, with the plain version's autograd as the
+backward pass.  The JAX package reaches its Pallas kernel only under
+``cfg.use_pallas``; the port follows its own dispatch rule instead (a CUDA
+tensor goes to the kernel, a CPU tensor to the plain version).
 
 The decode path updates a static-shape KV cache and masks by ``kv_len``:
 the whole live cache is streamed once per token by the decode-attention
@@ -7,9 +14,8 @@ kernel (``kernels/decode_attention``; the JAX package calls its plain
 reference here, the port calls the kernel on CUDA tensors).  Sliding-window
 decode stays plain, as in JAX.
 
-The training path (``gqa_train``) waits for the flash-attention kernel
-(ROADMAP.md queue B, item 6); MLA and cross-attention wait for their
-families (queue A, item 6).
+MLA and cross-attention wait for their families (ROADMAP.md queue A,
+item 6).
 """
 from __future__ import annotations
 
@@ -18,6 +24,7 @@ from typing import NamedTuple, Optional
 import torch
 
 from repro_torch.kernels.decode_attention.ops import decode_attention
+from repro_torch.kernels.flash_attention.ops import flash_attention
 from repro_torch.models.layers import cdt, rope_cos_sin, rotate
 from repro_torch.models.params import P, TensorSpec
 
@@ -63,6 +70,17 @@ def _qkv(p, x, cfg, positions):
         cos, sin = rope_cos_sin(positions[:, None, :], cfg.d_head, cfg.rope_theta, x.device)
         q, k = rotate(q, cos, sin), rotate(k, cos, sin)
     return q, k, v
+
+
+def gqa_train(p, x, cfg, *, causal=True):
+    """x: (B, S, d) → (B, S, d), every row at positions 0 … S-1."""
+    b, s, _ = x.shape
+    positions = torch.arange(s, device=x.device).expand(b, s)
+    q, k, v = _qkv(p, x, cfg, positions)
+    o = flash_attention(q, k, v, causal, cfg.window)  # (B, H, S, D)
+    hd = o.shape[1] * o.shape[3]
+    # einsum("bhsk,hkd->bsd", o, wo) as one matmul
+    return o.transpose(1, 2).reshape(b, s, hd) @ p["wo"].to(cdt(cfg)).reshape(hd, -1)
 
 
 def gqa_decode(p, x, cfg, cache: KVCache, pos: int):

@@ -1,8 +1,10 @@
-"""Model assembly: the dense decoder-only LM's decode path (port of the
-``_lm_*`` decode path of ``src/repro/models/backbone.py``).
+"""Model assembly: the dense decoder-only LM, training forward and decode
+path (port of the ``_lm_*`` paths of ``src/repro/models/backbone.py``).
 
-Public API (used by serve/launch):
+Public API (used by train/serve/launch):
     model_spec(cfg)                          → param spec tree (models/params.P)
+    forward_train(params, tokens, cfg, extra=None) → logits (B, S, V) f32
+    loss_fn(params, batch, cfg)              → (loss, metrics)
     cache_spec(cfg, batch, s_max)            → decode cache (TensorSpecs)
     init_cache(cfg, batch, s_max, device)    → zero-filled decode cache
     compute_params(params, cfg)              → params with each weight cast once
@@ -11,16 +13,20 @@ Public API (used by serve/launch):
 Layer stacks keep the JAX package's stacked ``(L, …)`` params and caches;
 the layer loop is explicit (JAX scans it).  ``forward_decode`` writes the
 new cache column of each layer in place and returns the same cache.
+``remat="full"`` checkpoints each layer (``torch.utils.checkpoint``), as
+``jax.checkpoint`` does; its backward runs the layer's forward again, the
+attention kernel included.
 
 Not ported yet, each raising ``NotImplementedError`` that names its roadmap
-item: ``forward_train`` / ``loss_fn`` (the training slice, on the
-flash-attention kernel), and the moe, vlm, ssm, hybrid and audio families.
+item: ``remat="dots"``, and the moe, vlm, ssm, hybrid and audio families.
 """
 from __future__ import annotations
 
 from typing import Any, Dict
 
 import torch
+import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models import attention as attn
 from repro_torch.models.config import ModelConfig
@@ -34,11 +40,12 @@ from repro_torch.models.layers import (
     norm_spec,
     unembed_apply,
 )
+from repro_torch.kernels._lib import resolve_device
 from repro_torch.models.params import P, map_specs
 
-_TRAINING = (
-    "training is not ported yet (ROADMAP.md queue A, item 6: forward_train and "
-    "loss_fn on the flash-attention kernel, queue B item 6)"
+_REMAT_DOTS = (
+    "remat='dots' is not ported yet (ROADMAP.md queue A, item 6: a checkpoint "
+    "policy that keeps only the matmul outputs); use 'full' or 'none'"
 )
 
 
@@ -80,6 +87,19 @@ def block_spec(cfg, moe: bool = False):
     }
 
 
+def block_apply(p, x, cfg, moe: bool = False):
+    if moe:
+        raise _family_not_ported("the MoE block")
+    if cfg.attn == "mla":
+        raise _family_not_ported("MLA attention")
+    h = norm_apply(p["ln1"], x, cfg)
+    h = attn.gqa_train(p["attn"], h, cfg)
+    x = x + h
+    h = norm_apply(p["ln2"], x, cfg)
+    h = mlp_apply(p["ffn"], h, cfg)
+    return x + h
+
+
 def block_decode(p, x, cfg, cache, pos, moe: bool = False):
     if moe:
         raise _family_not_ported("the MoE block")
@@ -102,6 +122,19 @@ def _layers(tree, n: int):
     return [{k: v[i] for k, v in parts.items()} for i in range(n)]
 
 
+def _scan_stack(params, x, cfg, body):
+    """x through the stacked-layer params, one layer after another (JAX's
+    ``lax.scan``), each layer checkpointed under ``remat="full"``."""
+    if cfg.remat == "dots":
+        raise NotImplementedError(_REMAT_DOTS)
+    for lp in _layers(params, cfg.n_layers):
+        if cfg.remat == "full":
+            x = checkpoint(body, lp, x, use_reentrant=False)
+        else:
+            x = body(lp, x)
+    return x
+
+
 # ---------------------------------------------------------------------------
 # family: dense (decoder-only transformer LM)
 # ---------------------------------------------------------------------------
@@ -115,6 +148,13 @@ def _lm_spec(cfg: ModelConfig):
     s: Dict[str, Any] = {"embed": embed_spec(cfg), "ln_f": norm_spec(cfg)}
     s["layers"] = stack_specs(block_spec(cfg, moe=False), cfg.n_layers)
     return s
+
+
+def _lm_forward(params, tokens, cfg: ModelConfig):
+    x = embed_apply(params["embed"], tokens, cfg)
+    x = _scan_stack(params["layers"], x, cfg, lambda p, h: block_apply(p, h, cfg))
+    x = norm_apply(params["ln_f"], x, cfg)
+    return unembed_apply(params["embed"], x, cfg)
 
 
 def _lm_cache_spec(cfg, batch, s_max):
@@ -154,7 +194,10 @@ def cache_spec(cfg: ModelConfig, batch: int, s_max: int):
     return _lm_cache_spec(cfg, batch, s_max)
 
 
-def init_cache(cfg: ModelConfig, batch: int, s_max: int, device="cpu"):
+def init_cache(cfg: ModelConfig, batch: int, s_max: int, device=None):
+    """A zero-filled decode cache on ``device`` (default the CUDA card;
+    raises without one)."""
+    device = resolve_device(device, "init_cache")
     spec = cache_spec(cfg, batch, s_max)
     return {
         name: attn.KVCache(
@@ -194,9 +237,21 @@ def forward_decode(params, cache, tokens, pos, cfg: ModelConfig):
 
 
 def forward_train(params, tokens, cfg: ModelConfig, extra=None):
-    raise NotImplementedError(_TRAINING)
+    """tokens: (B, S) int → logits (B, S, V) f32.  ``extra`` (the other
+    families' frames or patch embeddings) is unused by the dense family."""
+    _dense(cfg)
+    return _lm_forward(params, tokens, cfg)
 
 
 def loss_fn(params, batch, cfg: ModelConfig):
-    raise NotImplementedError(_TRAINING)
+    """Next-token cross-entropy, log-softmax in f32.  batch: {tokens (B, S)}.
+    Returns (loss, {"loss", "ppl"})."""
+    tokens = batch["tokens"]
+    extra = {k: v for k, v in batch.items() if k != "tokens"} or None
+    logits = forward_train(params, tokens, cfg, extra)
+    tgt = tokens[:, 1:].long()
+    logp = F.log_softmax(logits[:, :-1].float(), dim=-1)
+    nll = -logp.gather(-1, tgt[..., None])[..., 0]
+    loss = nll.mean()
+    return loss, {"loss": loss, "ppl": torch.exp(loss)}
 

@@ -19,6 +19,8 @@ from typing import Any, NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch.kernels._lib import resolve_device
+
 
 class P(NamedTuple):
     """Parameter spec: shape + logical axes + init."""
@@ -43,7 +45,7 @@ def _leaf_seed(path: str, seed: int) -> int:
     return (h + seed * 0x9E3779B1) % (1 << 32)
 
 
-def init_leaf(spec: P, path: str, device="cpu", seed: int = 0) -> torch.Tensor:
+def init_leaf(spec: P, path: str, device, seed: int = 0) -> torch.Tensor:
     if spec.init == "zeros":
         return torch.zeros(spec.shape, dtype=spec.dtype, device=device)
     if spec.init == "ones":
@@ -79,9 +81,10 @@ def map_specs(fn, tree):
     return rec(tree, "")
 
 
-def init_params(spec_tree, device="cpu", seed: int = 0) -> dict:
-    """Every leaf of ``spec_tree`` initialized on ``device`` (see the module
-    docstring for the generators)."""
+def init_params(spec_tree, device=None, seed: int = 0) -> dict:
+    """Every leaf of ``spec_tree`` initialized on ``device`` (default the
+    CUDA card; see the module docstring for the generators)."""
+    device = resolve_device(device, "init_params")
     return map_specs(lambda p, s: init_leaf(s, p, device, seed), spec_tree)
 
 

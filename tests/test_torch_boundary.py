@@ -13,6 +13,8 @@ from repro_torch.core import ABTree, TreeConfig  # noqa: E402
 from repro_torch.kernels import _lib  # noqa: E402
 from repro_torch.kernels.decode_attention import kernel as da_kernel, ops as da_ops, ref as da_ref  # noqa: E402
 from repro_torch.kernels.elim_combine import kernel as ec_kernel, ops as ec_ops, ref as ec_ref  # noqa: E402
+from repro_torch.kernels.flash_attention import kernel as fa_kernel, ops as fa_ops, ref as fa_ref  # noqa: E402
+from repro_torch.kernels.leaf_probe import kernel as lp_kernel, ops as lp_ops, ref as lp_ref  # noqa: E402
 from repro_torch.kernels.range_scan import kernel as rs_kernel, ops as rs_ops, ref as rs_ref  # noqa: E402
 from repro_torch.kernels.tree_descend import kernel as td_kernel, ops as td_ops, ref as td_ref  # noqa: E402
 
@@ -33,7 +35,8 @@ def _imported_roots(path: Path):
 def test_port_files_found():
     names = {p.name for p in PORT_FILES}
     assert {"abtree.py", "rounds.py", "elimination.py", "chip_smoke.py", "_lib.py",
-            "engine.py", "pages.py", "backbone.py", "attention.py"} <= names
+            "engine.py", "pages.py", "backbone.py", "attention.py", "trainer.py", "step.py",
+            "adamw.py", "manager.py", "pipeline.py"} <= names
 
 
 @pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(ROOT)))
@@ -73,6 +76,13 @@ def _wrappers():
         ("decode_attention", da_ops.decode_attention,
          (torch.zeros((1, 2, 64)), torch.zeros((1, 1, 8, 64)), torch.zeros((1, 1, 8, 64)), 3), {},
          da_kernel, "decode_attention_cuda", da_ref, "decode_attention_ref"),
+        ("flash_attention", fa_ops.flash_attention,
+         (torch.zeros((1, 2, 8, 32)), torch.zeros((1, 1, 8, 32)), torch.zeros((1, 1, 8, 32))), {},
+         fa_kernel, "flash_attention_cuda", fa_ref, "attention_ref"),
+        ("leaf_probe", lp_ops.leaf_probe, (i64, i64, i64[:, 0]), {},
+         lp_kernel, "leaf_probe_cuda", lp_ref, "leaf_probe_ref"),
+        ("leaf_probe_i64", lp_ops.leaf_probe_i64, (i64, i64.int(), i64[:, 0]), {},
+         lp_kernel, "leaf_probe_cuda", lp_ref, "leaf_probe_ref"),
     ]
 
 
@@ -132,7 +142,7 @@ def test_gqa_decode_reaches_the_decode_kernel(monkeypatch):
 
     cfg = ModelConfig(name="t", family="dense", n_layers=1, d_model=128, n_heads=2, n_kv=1,
                       d_ff=8, vocab=8, dtype="float32")
-    p = init_params(attention.gqa_spec(cfg))
+    p = init_params(attention.gqa_spec(cfg), "cpu")
     cache = attention.KVCache(torch.zeros((1, 1, 4, 64)), torch.zeros((1, 1, 4, 64)))
 
     def kernel_spy(*a, **k):
@@ -146,3 +156,57 @@ def test_gqa_decode_reaches_the_decode_kernel(monkeypatch):
     monkeypatch.setattr(da_ref, "decode_attention_ref", plain_trap)
     with pytest.raises(_Reached):
         attention.gqa_decode(p, torch.zeros((1, 1, 128)), cfg, cache, 2)
+
+
+def test_gqa_train_reaches_the_flash_attention_kernel(monkeypatch):
+    """The model's training attention goes through the kernel: with every
+    tensor reporting CUDA, ``gqa_train`` calls the flash-attention launcher
+    (inside the autograd Function) and never the plain version."""
+    from repro_torch.models import attention
+    from repro_torch.models.config import ModelConfig
+    from repro_torch.models.params import init_params
+
+    cfg = ModelConfig(name="t", family="dense", n_layers=1, d_model=64, n_heads=2, n_kv=1,
+                      d_ff=8, vocab=8, dtype="float32")
+    p = init_params(attention.gqa_spec(cfg), "cpu")
+    seen = []
+
+    def kernel_spy(q, k, v, **kw):
+        seen.append((tuple(q.shape), tuple(k.shape), kw))
+        raise _Reached
+
+    def plain_trap(*a, **k):
+        raise AssertionError("gqa_train: CUDA input reached the plain version")
+
+    monkeypatch.setattr(_lib, "on_cuda", lambda t: True)
+    monkeypatch.setattr(fa_kernel, "flash_attention_cuda", kernel_spy)
+    monkeypatch.setattr(fa_ref, "attention_ref", plain_trap)
+    with pytest.raises(_Reached):
+        attention.gqa_train(p, torch.zeros((3, 5, 64)), cfg)
+    assert seen == [((3, 2, 5, 32), (3, 1, 5, 32),
+                     dict(causal=True, window=0, sm_scale=1.0 / 32**0.5))]
+
+
+def test_flash_attention_backward_is_the_plain_versions_autograd(monkeypatch):
+    """The CUDA path's backward recomputes through the plain version and
+    launches no kernel: with the forward launcher standing in for the
+    kernel, the Function's grads equal plain autograd's bit for bit."""
+    launches = []
+
+    def fake_kernel(q, k, v, **kw):
+        launches.append(1)
+        return fa_ref.attention_ref(q, k, v, **kw)
+
+    monkeypatch.setattr(_lib, "on_cuda", lambda t: True)
+    monkeypatch.setattr(fa_kernel, "flash_attention_cuda", fake_kernel)
+    gen = torch.Generator().manual_seed(0)
+    q, k, v, w = (torch.randn(s, generator=gen) for s in
+                  ((2, 4, 33, 32), (2, 2, 33, 32), (2, 2, 33, 32), (2, 4, 33, 32)))
+    grads = []
+    for fn in (fa_ops.flash_attention, lambda *a: fa_ref.attention_ref(*a[:3], causal=True)):
+        xs = [x.clone().requires_grad_() for x in (q, k, v)]
+        (fn(*xs) * w).sum().backward()
+        grads.append([x.grad for x in xs])
+    assert launches == [1]
+    for a, b in zip(*grads):
+        assert torch.equal(a, b)

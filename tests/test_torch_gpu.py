@@ -1,6 +1,8 @@
 """Card-only tests of the port: each hand-written CUDA kernel against its
-plain PyTorch version on the same CUDA tensors (bit-equal), and a small
-``ABTree`` on the card against the ``DictOracle``.  Marked ``gpu``; they
+plain PyTorch version on the same CUDA tensors (bit-equal where both are
+exact; attention within the tolerance stated at each test), a small
+``ABTree`` on the card against the ``DictOracle``, a small serve engine and
+one training step on the card against the same on the CPU.  Marked ``gpu``; they
 skip on a host without a CUDA card.  Run on the card with
 ``PYTHONPATH=src python -m pytest -m gpu tests/test_torch_gpu.py``."""
 import math
@@ -27,6 +29,11 @@ from repro_torch.kernels.decode_attention import kernel as da_kernel  # noqa: E4
 from repro_torch.kernels.decode_attention.ref import decode_attention_ref  # noqa: E402
 from repro_torch.kernels.elim_combine import kernel as ec_kernel  # noqa: E402
 from repro_torch.kernels.elim_combine.ref import elim_combine_ref  # noqa: E402
+from repro_torch.kernels.flash_attention import kernel as fa_kernel  # noqa: E402
+from repro_torch.kernels.flash_attention import ops as fa_ops  # noqa: E402
+from repro_torch.kernels.flash_attention.ref import attention_ref  # noqa: E402
+from repro_torch.kernels.leaf_probe import kernel as lp_kernel  # noqa: E402
+from repro_torch.kernels.leaf_probe.ref import leaf_probe_ref  # noqa: E402
 from repro_torch.kernels.range_scan import kernel as rs_kernel  # noqa: E402
 from repro_torch.kernels.range_scan.ref import range_scan_ref  # noqa: E402
 from repro_torch.kernels.tree_descend import kernel as td_kernel  # noqa: E402
@@ -178,6 +185,146 @@ def test_decode_attention_limits_named(cuda):
         da_kernel.decode_attention_cuda(q, k, k, 9, 1.0)
 
 
+def _ulps_at_max(want, n=2):
+    top = float(want.abs().max())
+    return n * torch.finfo(want.dtype).eps * 2.0 ** math.floor(math.log2(top))
+
+
+def _poisoned(shape, dtype, gen, cuda):
+    """A contiguous tensor whose storage runs on past its end into NaN: a
+    kernel that read key rows at or past S would meet them."""
+    n = math.prod(shape)
+    buf = torch.full((n + 4096,), float("nan"), dtype=dtype, device=cuda)
+    buf[:n] = torch.randn(n, generator=gen).to(cuda, dtype)
+    return buf[:n].view(shape)
+
+
+@pytest.mark.parametrize(
+    "b,h,kh,s,d,causal,window,dtype",
+    [(2, 14, 2, 1024, 64, True, 0, torch.bfloat16),  # qwen2-0.5b training shape, G = 7
+     (1, 14, 2, 1000, 64, False, 0, torch.bfloat16),  # ragged S, not causal
+     (2, 8, 2, 777, 64, True, 256, torch.bfloat16),  # sliding window
+     (1, 32, 32, 300, 80, True, 0, torch.bfloat16),  # h2o-danube-1.8b's D = 80
+     (1, 8, 1, 200, 128, True, 0, torch.float32),  # MQA at D = 128
+     (2, 4, 2, 130, 32, True, 48, torch.float32),  # reduced configs' head dim, window
+     (1, 4, 4, 65, 80, False, 0, torch.float32),
+     (3, 4, 2, 1, 64, True, 0, torch.float32)],  # one row
+)
+def test_flash_attention_kernel_equals_plain(cuda, b, h, kh, s, d, causal, window, dtype):
+    """Forward kernel against the plain version on the same CUDA tensors:
+    f32 within 1e-5 (summation order); bf16 within 2 bf16 ulps at the
+    output's largest magnitude (both round one f32 result once).  Key rows
+    past S are NaN in memory and must never be read."""
+    gen = torch.Generator(device="cpu").manual_seed(b * s + d + window)
+    q = torch.randn((b, h, s, d), generator=gen).to(cuda, dtype)
+    k = _poisoned((b, kh, s, d), dtype, gen, cuda)
+    v = _poisoned((b, kh, s, d), dtype, gen, cuda)
+    scale = 1.0 / d**0.5
+    got = fa_kernel.flash_attention_cuda(q, k, v, causal=causal, window=window, sm_scale=scale)
+    want = attention_ref(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert not torch.isnan(got).any()
+    if dtype == torch.bfloat16:
+        err = float((got.float() - want.float()).abs().max())
+        assert err <= _ulps_at_max(want), (err, float(want.abs().max()))
+    else:
+        torch.testing.assert_close(got.cpu(), want.cpu(), atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.parametrize("causal,window", [(True, 0), (True, 40), (False, 0)])
+def test_flash_attention_gradients_equal_plain_autograd(cuda, causal, window):
+    """The Function's backward is the plain version's autograd on the saved
+    inputs, so its grads equal plain autograd's bit for bit; the backward
+    launches no kernel."""
+    gen = torch.Generator(device="cpu").manual_seed(7)
+    q, k, v, w = (torch.randn(sh, generator=gen).to(cuda, torch.bfloat16) for sh in
+                  ((2, 14, 300, 64), (2, 2, 300, 64), (2, 2, 300, 64), (2, 14, 300, 64)))
+    grads = []
+    for fn in (fa_ops.flash_attention,
+               lambda *a: attention_ref(*a[:3], causal=causal, window=window)):
+        xs = [x.clone().requires_grad_() for x in (q, k, v)]
+        out = fn(*xs, causal, window)
+        before = fa_kernel.FLASH_ATTENTION.launches
+        (out.float() * w.float()).sum().backward()
+        assert fa_kernel.FLASH_ATTENTION.launches == before
+        grads.append([x.grad for x in xs])
+    for a, b_ in zip(*grads):
+        assert torch.equal(a, b_)
+
+
+def test_flash_attention_limits_named(cuda):
+    q = torch.zeros((1, 2, 8, 48), device=cuda)
+    with pytest.raises(ValueError, match="head dim"):
+        fa_kernel.flash_attention_cuda(q, q, q, causal=True, window=0, sm_scale=1.0)
+    q = torch.zeros((1, 3, 8, 64), device=cuda)
+    k = torch.zeros((1, 2, 8, 64), device=cuda)
+    with pytest.raises(ValueError, match="kv heads"):
+        fa_kernel.flash_attention_cuda(q, k, k, causal=True, window=0, sm_scale=1.0)
+
+
+@pytest.mark.parametrize("kdt,vdt", [(torch.int32, torch.int32), (torch.int64, torch.int64),
+                                     (torch.int64, torch.int32)])
+@pytest.mark.parametrize("bsz,b", [(1, 8), (1000, 11), (70000, 16)])
+def test_leaf_probe_kernel_equals_plain(cuda, bsz, b, kdt, vdt):
+    rng = np.random.default_rng(bsz + b)
+    hi = 2**62 if kdt == torch.int64 else 2**30
+    keys = rng.integers(-hi, hi, (bsz, b))
+    keys[:, 1] = keys[:, 3]  # duplicates: the first slot wins
+    queries = rng.integers(-hi, hi, bsz)
+    hits = rng.random(bsz) < 0.6
+    queries[hits] = keys[hits, rng.integers(0, b, bsz)[hits]]
+    if kdt == torch.int64:  # same low 32 bits, other high bits
+        keys[~hits, 0] = queries[~hits] ^ (1 << 40)
+    vals = rng.integers(-(2**30), 2**30, (bsz, b))
+    args = (torch.as_tensor(keys, dtype=kdt, device=cuda),
+            torch.as_tensor(vals, dtype=vdt, device=cuda),
+            torch.as_tensor(queries, dtype=kdt, device=cuda))
+    got = lp_kernel.leaf_probe_cuda(*args)
+    want = leaf_probe_ref(*args)
+    _eq(got[0], want[0], "slot")
+    _eq(got[1], want[1], "val")
+    assert got[1].dtype == vdt
+
+
+def test_train_step_on_card_matches_cpu(cuda):
+    """One ``step_fn`` of reduced qwen2-0.5b (2 layers, f32, B6 on the card)
+    against the same step on the CPU: loss within 1e-5, grad norm and the
+    first moment (a tenth of the clipped grads) within rtol 1e-4 / atol
+    1e-7 (f32 sums in another order), count equal, and params within twice
+    the step's learning rate (AdamW's first step is about lr · sign(g),
+    whose sign a grad near 0 may flip)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import backbone, reduced
+    from repro_torch.models.params import init_params
+    from repro_torch.optim import adamw_init
+    from repro_torch.optim.adamw import tree_leaves
+    from repro_torch.train import make_train_step
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = reduced(get_config("qwen2-0.5b"))
+    params = init_params(backbone.model_spec(cfg), "cpu", seed=2)
+    tokens = torch.as_tensor(np.random.default_rng(2).integers(0, cfg.vocab, (4, 64)),
+                             dtype=torch.int32)
+    step_fn = make_train_step(cfg)
+    outs = {}
+    for dev in ("cpu", cuda):
+        p = _to(params, dev)
+        _lib.reset_counts()
+        outs[str(dev)] = step_fn(p, adamw_init(p), {"tokens": tokens.to(dev)}, 50)
+        if dev != "cpu":
+            assert fa_kernel.FLASH_ATTENTION.launches == cfg.n_layers
+    a, b_ = outs["cpu"], outs[str(cuda)]
+    torch.testing.assert_close(b_.metrics["loss"].cpu(), a.metrics["loss"], atol=1e-5, rtol=1e-5)
+    torch.testing.assert_close(b_.metrics["grad_norm"].cpu(), a.metrics["grad_norm"],
+                               atol=1e-7, rtol=1e-4)
+    assert int(b_.opt_state.count) == int(a.opt_state.count) == 1
+    for x, y in zip(tree_leaves(b_.opt_state.m), tree_leaves(a.opt_state.m)):
+        torch.testing.assert_close(x.cpu(), y, atol=1e-7, rtol=1e-4)
+    lr = float(a.metrics["lr"])
+    for x, y in zip(tree_leaves(b_.params), tree_leaves(a.params)):
+        assert float((x.cpu() - y).abs().max()) <= 2 * lr + 1e-6
+
+
 def test_abtree_on_card_matches_oracle(cuda):
     """Mixed rounds with splits, merges and truncated scans on the card,
     every kernel launched, lane-for-lane equal to the oracle."""
@@ -224,7 +371,7 @@ def test_serve_engine_on_card_matches_cpu(cuda):
     cfg = ModelConfig(name="small", family="dense", n_layers=2, d_model=128, n_heads=4,
                       n_kv=2, d_ff=256, vocab=128, d_head=64, qkv_bias=True,
                       tie_embeddings=True, dtype="float32")
-    params = init_params(backbone.model_spec(cfg), seed=5)
+    params = init_params(backbone.model_spec(cfg), "cpu", seed=5)
     rng = np.random.default_rng(5)
     hot = rng.integers(0, 128, 260).tolist()
     reqs = [(rid, hot if rid % 3 else rng.integers(0, 128, 260).tolist()) for rid in range(6)]
@@ -238,8 +385,9 @@ def test_serve_engine_on_card_matches_cpu(cuda):
         eng.run_until_done(max_ticks=500)
         runs[(str(dev), pipelined)] = ({r.rid: r.out for r in eng.done}, eng.index.tree.items(),
                                        eng.sessions.tree.items(), eng.stats()["cache_hit_blocks"])
-        if dev != "cpu":
-            for name in _lib.SOURCES:
+        if dev != "cpu":  # the serving path's kernels: the tree's four and decode attention
+            for name in ("descend_probe", "frontier_compact", "elim_combine", "range_scan",
+                         "decode_attention"):
                 assert _lib.COUNTERS[name].launches > 0, name
     want = runs[("cpu", False)]
     assert want[3] > 0

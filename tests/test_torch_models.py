@@ -144,12 +144,12 @@ def test_weights_cast_once_give_the_same_outputs():
     """``compute_params`` (each weight cast to bf16 once) and the fp32
     master weights cast at every use give bit-equal bf16 decode steps."""
     t = reduced(get_config("qwen2-0.5b"), dtype="bfloat16")
-    master = tparams.init_params(backbone.model_spec(t), seed=3)
+    master = tparams.init_params(backbone.model_spec(t), "cpu", seed=3)
     cast = backbone.compute_params(master, t)
     assert cast["layers"]["attn"]["wq"].dtype == torch.bfloat16
     assert cast["embed"]["tok"].dtype == torch.float32
     assert cast["layers"]["ln1"]["scale"].dtype == torch.float32
-    c1, c2 = backbone.init_cache(t, 2, 8), backbone.init_cache(t, 2, 8)
+    c1, c2 = backbone.init_cache(t, 2, 8, "cpu"), backbone.init_cache(t, 2, 8, "cpu")
     for pos in range(3):
         tok = torch.tensor([pos, 7])
         a, c1 = backbone.forward_decode(master, c1, tok, pos, t)
@@ -160,9 +160,9 @@ def test_weights_cast_once_give_the_same_outputs():
 def test_init_is_seeded_per_leaf_path():
     t, _ = _cfg()
     spec = backbone.model_spec(t)
-    a = tparams.init_params(spec, seed=0)
-    b = tparams.init_params(spec, seed=0)
-    c = tparams.init_params(spec, seed=1)
+    a = tparams.init_params(spec, "cpu", seed=0)
+    b = tparams.init_params(spec, "cpu", seed=0)
+    c = tparams.init_params(spec, "cpu", seed=1)
     assert torch.equal(a["layers"]["attn"]["wq"], b["layers"]["attn"]["wq"])
     assert not torch.equal(a["layers"]["attn"]["wq"], c["layers"]["attn"]["wq"])
     assert torch.equal(a["layers"]["attn"]["bq"], torch.zeros_like(a["layers"]["attn"]["bq"]))
@@ -170,8 +170,10 @@ def test_init_is_seeded_per_leaf_path():
 
 
 def test_training_and_other_families_refused():
+    """Training is ported (``tests/test_torch_train.py``); the other
+    families are refused on both paths."""
     t, _ = _cfg()
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        backbone.forward_train({}, torch.zeros((1, 2), dtype=torch.int64), t)
+        backbone.forward_train({}, torch.zeros((1, 2), dtype=torch.int64), t.replace(family="ssm"))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         backbone.model_spec(t.replace(family="moe", n_experts=4))
