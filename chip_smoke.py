@@ -8,7 +8,9 @@ Run from the root of a checkout on a machine with one CUDA card:
 It builds the port's seven hand-written CUDA kernels from ``src/repro_torch/
 csrc`` (one ``nvcc`` per source, in parallel, into ``build/``), then:
 
-1. prints the card's name and power limit;
+1. prints the card's name and power limit, and counts the kernels one
+   decode-attention call (B7) runs on the card at the serve phase's shapes
+   (``torch.profiler``), which must be 1;
 2. drives the port's tree path, ``ABTree.apply_round`` in elim mode on one
    tree at the paper's b = 11 with int64 keys and values: prefill of half
    the key range in insert rounds (a first one of 4,096 lanes into the empty
@@ -49,7 +51,10 @@ csrc`` (one ``nvcc`` per source, in parallel, into ``build/``), then:
    timed, beside the least time the card needs for the call (its bytes at
    3.35 TB/s or its operations at the peak for their type, whichever is
    longer) and, where one PyTorch call computes a comparable function, that
-   call's time;
+   call's time; flash attention also with the count of HGMMA (wgmma)
+   instructions in its built library, which must not be 0, and decode
+   attention with step 1's count and the clusters of each size the card
+   holds at once;
 6. prints ``{"ok": true, "device": {...}}`` as its last line.
 
 Any failed check raises, so the script exits non-zero.  Without a CUDA card,
@@ -60,6 +65,7 @@ from __future__ import annotations
 
 import collections
 import json
+import shutil
 import subprocess
 import sys
 import time
@@ -786,6 +792,46 @@ def graph_ms(torch, fn, iters: int = 20, reps: int = 5) -> float:
     return start.elapsed_time(end) / (iters * reps)
 
 
+def sass_count(lib_path, opcode: str) -> int:
+    """Instructions of ``opcode`` in a built library's SASS (``cuobjdump``)."""
+    cuobjdump = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    sass = subprocess.run([cuobjdump, "-sass", str(lib_path)], capture_output=True, text=True,
+                          check=True).stdout
+    return sum(opcode in line for line in sass.splitlines())
+
+
+def kernels_per_call(torch, fn) -> int:
+    """Kernels the card runs for one call of ``fn`` (``torch.profiler``,
+    host and device activity, as the train phase profiles)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(1 for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA)
+
+
+def decode_kernels_per_call(torch, da_kernel, cfg) -> int:
+    """Kernels one B7 call runs on the card, at the serve phase's shapes
+    (its batch, heads and cache, the kv_len of its last decode step) on
+    seeded inputs; it must be 1.  Counted before any path runs, in the
+    process's first profiler session: after the train phase's profiled
+    step, a session this short came back with no device events at all."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    b, s_max = SERVE_ENGINE["max_batch"], SERVE_ENGINE["s_max"]
+    q = torch.randn((b, cfg.n_heads, cfg.d_head), generator=gen, device="cuda").bfloat16()
+    k, v = (torch.randn((b, cfg.n_kv, s_max, cfg.d_head), generator=gen, device="cuda").bfloat16()
+            for _ in range(2))
+    kv_len = SERVE_PROMPT + SERVE_MAX_NEW - 1
+    scale = cfg.d_head ** -0.5
+    n = kernels_per_call(torch, lambda: da_kernel.decode_attention_cuda(q, k, v, kv_len, scale))
+    if n != 1:
+        raise AssertionError(f"decode_attention: one call ran {n} kernels, not 1")
+    return n
+
+
 def max_abs_err(torch, got, want) -> float:
     err = 0.0
     for g, w in zip(got, want):
@@ -931,9 +977,11 @@ def leaf_probe_replay(torch, td_kernel, lp_kernel, lp_ops, descend_call):
     return lk, lv, lq, got, launches
 
 
-def kernel_report(torch, mods, summary, recorded, serve_summary, serve_recorded,
-                  train_summary, train_recorded):
-    """Replay one main-path call per kernel against its plain version."""
+def kernel_report(torch, mods, libs, summary, recorded, serve_summary, serve_recorded,
+                  decode_per_call, train_summary, train_recorded):
+    """Replay one main-path call per kernel against its plain version.
+    ``libs``: kernel name -> built library; ``decode_per_call``: the kernels
+    one decode-attention call ran."""
     (td_kernel, td_ref, td_ops, ec_kernel, ec_ref, rs_kernel, rs_ref, da_kernel, da_ref,
      fa_kernel, fa_ops, fa_ref, lp_kernel, lp_ops, lp_ref) = mods
     rows = []
@@ -1040,6 +1088,7 @@ def kernel_report(torch, mods, summary, recorded, serve_summary, serve_recorded,
             f"(max |err| {r_err} > {r_tol}, max |want| {float(r_want.abs().max())})"
         )
     want = da_ref.decode_attention_ref(q, k, v, kv_len, sm_scale=scale)
+    capacity = da_kernel.cluster_capacity(q.dtype, d, h // kh)  # clusters of n blocks at once
     sdpa = torch.nn.functional.scaled_dot_product_attention
     kv, vv = k[:, :, :kv_len], v[:, :, :kv_len]
     lib_ms = graph_ms(torch, lambda: sdpa(q[:, :, None], kv, vv, enable_gqa=True))
@@ -1055,7 +1104,10 @@ def kernel_report(torch, mods, summary, recorded, serve_summary, serve_recorded,
         launches=serve_summary["launches"]["decode_attention"],
         ops=4.0 * b * h * kv_len * d, ops_per_s=OPS_PER_S[str(q.dtype)],
         extra={"max_abs_want": float(want.abs().max()), "random_max_abs_err": r_err,
-               "random_tolerance": r_tol, "random_max_abs_want": float(r_want.abs().max())},
+               "random_tolerance": r_tol, "random_max_abs_want": float(r_want.abs().max()),
+               "kernels_per_call": decode_per_call,
+               "cluster_plan": list(da_kernel.cluster_plan(b, kh, kv_len, capacity)),
+               "cluster_capacity": [capacity(n) for n in range(1, da_kernel.MAX_CLUSTER + 1)]},
     )
 
     # B6 flash_attention: the train phase's last forward call (and, in
@@ -1069,6 +1121,10 @@ def kernel_report(torch, mods, summary, recorded, serve_summary, serve_recorded,
     sdpa = torch.nn.functional.scaled_dot_product_attention
     lib_ms = graph_ms(torch, lambda: sdpa(q, k, v, is_causal=True, enable_gqa=True))
     causal_ops = 2.0 * b * h * sq * sq * d  # the causal half of 4·B·H·S²·D
+    hgmma = sass_count(libs["flash_attention"], "HGMMA")
+    if q.dtype == torch.bfloat16 and hgmma == 0:
+        raise AssertionError("flash_attention: no HGMMA in the built library: "
+                             "bf16 does not run on the tensor cores")
     entry(
         "flash_attention", "src/repro_torch/csrc/flash_attention.cu",
         "src/repro/kernels/flash_attention/kernel.py:94",
@@ -1081,7 +1137,8 @@ def kernel_report(torch, mods, summary, recorded, serve_summary, serve_recorded,
         ops=causal_ops, ops_per_s=OPS_PER_S[str(q.dtype)],
         extra={"max_abs_want": float(want.abs().max()), "replays": cases,
                "grad_max_abs_err": grad_err,
-               "library": "scaled_dot_product_attention(is_causal=True, enable_gqa=True)"},
+               "library": "scaled_dot_product_attention(is_causal=True, enable_gqa=True)",
+               "sass_hgmma": hgmma},
     )
     del want
 
@@ -1136,7 +1193,7 @@ def main() -> int:
 
     # 1. set-up: build every kernel, name the card
     t0 = time.perf_counter()
-    lib.build_all()
+    libs = lib.build_all()
     log(f"kernels built in {time.perf_counter() - t0:.1f}s")
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -1144,6 +1201,9 @@ def main() -> int:
     ).stdout.strip().splitlines()[0]
     kind = torch.cuda.get_device_name(0)
     print(f"{smi} | torch.cuda.get_device_name(0) = {kind}", flush=True)
+    from repro_torch.configs import get_config
+
+    decode_per_call = decode_kernels_per_call(torch, da_kernel, get_config(SERVE_ARCH))
 
     # 2. the main path at full width
     summary, recorded = run_main_path(torch, core, lib, zipf_keys)
@@ -1152,8 +1212,6 @@ def main() -> int:
     # 3. the serving path at full width
     torch.backends.cuda.matmul.allow_tf32 = False  # f32 products in full f32
     torch.backends.cudnn.allow_tf32 = False
-    from repro_torch.configs import get_config
-
     serve_summary, serve_recorded = run_serve_path(
         torch, core, lib, torch.device("cuda"), get_config(SERVE_ARCH)
     )
@@ -1167,7 +1225,8 @@ def main() -> int:
     rows = kernel_report(
         torch, (td_kernel, td_ref, td_ops, ec_kernel, ec_ref, rs_kernel, rs_ref, da_kernel, da_ref,
                 fa_kernel, fa_ops, fa_ref, lp_kernel, lp_ops, lp_ref),
-        summary, recorded, serve_summary, serve_recorded, train_summary, train_recorded,
+        libs, summary, recorded, serve_summary, serve_recorded, decode_per_call, train_summary,
+        train_recorded,
     )
     print(json.dumps({"kernels": rows}), flush=True)
     print(smi, flush=True)

@@ -7,8 +7,10 @@ with ``nvcc`` for ``sm_90a`` into its own shared library under the
 checkout's ``build/`` directory and loaded with ``ctypes``; no PyTorch
 header is included, so a build takes seconds.  All sources are compiled
 together, one ``nvcc`` process each, the first time any kernel is needed.
-A library's file name carries a hash of its source, so an edited source
-is rebuilt and a stale library is never loaded.
+A library's file name carries a hash of everything its build reads: its
+source, every shared header ``csrc/*.cuh``, and the ``nvcc`` flags; so an
+edited source or header, or a changed flag, is rebuilt and a stale library
+is never loaded.
 
 Nothing here runs at import time: the CPU tests import every module of the
 port on a machine with no ``nvcc`` and no card.
@@ -86,8 +88,14 @@ def _nvcc() -> str:
 
 
 def _target(name: str) -> Path:
-    digest = hashlib.sha1((CSRC / f"{name}.cu").read_bytes()).hexdigest()[:12]
-    return BUILD_DIR / f"{name}-{digest}.so"
+    """The library of source ``name``, named by a hash of its source, every
+    shared header and its ``nvcc`` command line (less the paths of the
+    compiler, the source and the output, which say nothing of the build)."""
+    h = hashlib.sha1((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.name.encode() + b"\0" + header.read_bytes())
+    h.update("\0".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"{name}-{h.hexdigest()[:12]}.so"
 
 
 def build_all() -> Dict[str, Path]:
@@ -168,6 +176,12 @@ def require(t: torch.Tensor, name: str, dtype, shape, device) -> None:
         raise ValueError(f"{name}: shape {tuple(t.shape)}, expected {tuple(shape)}")
     if not t.is_contiguous():
         raise ValueError(f"{name}: must be contiguous")
+
+
+def aligned16(t: torch.Tensor) -> torch.Tensor:
+    """``t``, or a copy of it if its data does not start on 16 bytes (the
+    kernels' vector and TMA loads need it; a fresh allocation always does)."""
+    return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
 def stream_of(device) -> int:

@@ -1,28 +1,62 @@
 """Launcher of the decode-attention CUDA kernel (``csrc/decode_attention.cu``):
-split-KV flash-decoding, a partial pass over ``n_split`` column ranges per
-(batch, kv head) and a combine pass."""
+one launch, a thread-block cluster per (batch, kv head) whose blocks split
+the first ``kv_len`` columns and merge their partials through distributed
+shared memory."""
 from __future__ import annotations
+
+import ctypes
+from typing import Callable, Dict, Tuple
 
 import torch
 
 from repro_torch.kernels import _lib
 
 DECODE_ATTENTION = _lib.counter("decode_attention")
-TILE = 32  # columns per tile in the kernel
-TARGET_BLOCKS = 264  # about two partial blocks per SM of an H100 (132 SMs)
-MAX_GROUP_WIDTH = 2048  # (H / KH) * D: at most 8 accumulators a thread
+MAX_CLUSTER = 8  # the portable cluster size
+MIN_COLUMNS = 16  # fewer columns a block are not worth a block of their own
+MAX_GROUP_WIDTH = 2048  # (H / KH) * D: the kernel's shared-memory sizing
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 HEAD_DIMS = (32, 64, 128)  # the kernel's instances
 
 
-def split_plan(batch: int, kv_heads: int, kv_len: int):
-    """``(n_split, chunk)``: ranges of ``chunk`` columns (a multiple of the
-    tile) over the first ``kv_len``, sized so the grid has about
-    ``TARGET_BLOCKS`` blocks and no range is empty."""
-    want = max(1, -(-TARGET_BLOCKS // (batch * kv_heads)))
-    chunk = -(-kv_len // want)
-    chunk = -(-chunk // TILE) * TILE
+def cluster_plan(batch: int, kv_heads: int, kv_len: int,
+                 capacity: Callable[[int], int]) -> Tuple[int, int]:
+    """``(n_blocks, chunk)``: the cluster of each (batch, kv head) has
+    ``n_blocks`` <= ``MAX_CLUSTER`` blocks, block r covering columns
+    ``[r * chunk, min((r + 1) * chunk, kv_len))``; no block is empty and
+    every column below ``kv_len`` is covered once.  ``capacity(n)`` is how
+    many clusters of n blocks the card holds at once (``cluster_capacity``):
+    the grid aims at ``capacity(1)`` blocks, as many as run at once, and
+    clusters shrink until all ``batch * kv_heads`` of them run together (a
+    second wave of clusters would double the call)."""
+    n_clusters = batch * kv_heads
+    want = max(1, -(-capacity(1) // n_clusters))
+    n = min(MAX_CLUSTER, want, -(-kv_len // MIN_COLUMNS))
+    while n > 1 and capacity(n) < n_clusters:
+        n -= 1
+    chunk = -(-kv_len // n)
     return -(-kv_len // chunk), chunk
+
+
+_CAPACITY: Dict[Tuple[int, int, int], Dict[int, int]] = {}
+
+
+def cluster_capacity(dtype: torch.dtype, head_dim: int, group: int) -> Callable[[int], int]:
+    """The card's ``capacity`` for ``cluster_plan``: clusters of n blocks of
+    the kernel's instance that fit at once, asked of the CUDA runtime once
+    per (dtype, head dim, group)."""
+    key = (DTYPES[dtype], head_dim, group)
+    caps = _CAPACITY.get(key)
+    if caps is None:
+        fn = _lib.bind("decode_attention", "decode_attention_capacity",
+                       [_lib.I32] * 4 + [ctypes.POINTER(ctypes.c_int)])
+        caps = {}
+        for n in range(1, MAX_CLUSTER + 1):
+            out = ctypes.c_int(0)
+            _lib.check(fn(head_dim, key[0], group, n, ctypes.byref(out)), "decode_attention")
+            caps[n] = out.value
+        _CAPACITY[key] = caps
+    return caps.__getitem__
 
 
 def decode_attention_cuda(q, k, v, kv_len: int, sm_scale: float):
@@ -45,20 +79,16 @@ def decode_attention_cuda(q, k, v, kv_len: int, sm_scale: float):
     _lib.require(q, "q", q.dtype, (b, h, d), dev)
     _lib.require(k, "k", q.dtype, (b, kh, s, d), dev)
     _lib.require(v, "v", q.dtype, (b, kh, s, d), dev)
-    n_split, chunk = split_plan(b, kh, kv_len)
-    g = h // kh
+    q, k, v = (_lib.aligned16(x) for x in (q, k, v))
+    n_blocks, chunk = cluster_plan(b, kh, kv_len, cluster_capacity(q.dtype, d, h // kh))
     out = torch.empty((b, h, d), dtype=q.dtype, device=dev)
-    part_m = torch.empty((b, kh, n_split, g), dtype=torch.float32, device=dev)
-    part_l = torch.empty_like(part_m)
-    part_acc = torch.empty((b, kh, n_split, g, d), dtype=torch.float32, device=dev)
     fn = _lib.bind(
         "decode_attention", "decode_attention_launch",
-        [_lib.P] * 7 + [_lib.I32] * 9 + [_lib.F32, _lib.P],
+        [_lib.P] * 4 + [_lib.I32] * 9 + [_lib.F32, _lib.P],
     )
     err = fn(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), part_m.data_ptr(),
-        part_l.data_ptr(), part_acc.data_ptr(), b, h, kh, s, d, int(kv_len), n_split,
-        chunk, DTYPES[q.dtype], float(sm_scale), _lib.stream_of(dev),
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, h, kh, s, d, int(kv_len),
+        n_blocks, chunk, DTYPES[q.dtype], float(sm_scale), _lib.stream_of(dev),
     )
     _lib.check(err, "decode_attention")
     DECODE_ATTENTION.launched((q, k, v, dict(kv_len=int(kv_len), sm_scale=float(sm_scale))))

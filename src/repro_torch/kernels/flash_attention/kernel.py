@@ -1,6 +1,7 @@
 """Launcher of the flash-attention forward CUDA kernel
 (``csrc/flash_attention.cu``): one block per (query tile, batch·head)
-walks the key tiles its rows can see, with an f32 online softmax."""
+walks the key tiles its rows can see, with an f32 online softmax; bf16 on
+the tensor cores (wgmma, fed by TMA), float32 on the CUDA cores."""
 from __future__ import annotations
 
 import torch
@@ -34,6 +35,7 @@ def flash_attention_cuda(q, k, v, *, causal: bool, window: int, sm_scale: float)
     _lib.require(q, "q", q.dtype, (b, h, s, d), dev)
     _lib.require(k, "k", q.dtype, (b, kh, s, d), dev)
     _lib.require(v, "v", q.dtype, (b, kh, s, d), dev)
+    q, k, v = (_lib.aligned16(x) for x in (q, k, v))
     out = torch.empty_like(q)
     fn = _lib.bind(
         "flash_attention", "flash_attention_launch",

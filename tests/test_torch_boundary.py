@@ -132,6 +132,39 @@ def test_kernel_launcher_raises_without_a_build(monkeypatch, tmp_path):
         td_kernel.frontier_compact_cuda(x, x.bool(), 2)
 
 
+def test_library_name_follows_headers_and_flags(monkeypatch, tmp_path):
+    """A kernel's library is named by a hash of its source, every shared
+    ``csrc/*.cuh`` and its ``nvcc`` flags: editing a header, adding one or
+    changing a flag names a new library, so a stale one is never loaded."""
+    csrc = tmp_path / "csrc"
+    csrc.mkdir()
+    (csrc / "k.cu").write_text('#include "shared.cuh"\n')
+    (csrc / "shared.cuh").write_text("// v1\n")
+    monkeypatch.setattr(_lib, "CSRC", csrc)
+    names = [_lib._target("k")]
+    assert _lib._target("k") == names[0]  # the same inputs, the same name
+    (csrc / "shared.cuh").write_text("// v2\n")
+    names.append(_lib._target("k"))
+    (csrc / "other.cuh").write_text("// another header\n")
+    names.append(_lib._target("k"))
+    monkeypatch.setattr(_lib, "NVCC_FLAGS", _lib.NVCC_FLAGS + ("-I/usr/local/cutlass/include",))
+    names.append(_lib._target("k"))
+    assert len(set(names)) == len(names), names
+    assert all(n.name.startswith("k-") and n.parent == _lib.BUILD_DIR for n in names)
+
+
+def test_kernel_inputs_start_on_16_bytes():
+    """The attention kernels read with 16-byte vector and TMA loads: a
+    tensor whose data does not start on 16 bytes is copied first, one that
+    does is passed through untouched."""
+    base = torch.arange(40, dtype=torch.bfloat16)
+    view = base[1:33]
+    assert view.data_ptr() % 16 != 0
+    fixed = _lib.aligned16(view)
+    assert fixed.data_ptr() % 16 == 0 and torch.equal(fixed, view)
+    assert _lib.aligned16(base) is base
+
+
 def test_gqa_decode_reaches_the_decode_kernel(monkeypatch):
     """The model's decode attention goes through the kernel wrapper: with
     every tensor reporting CUDA, ``gqa_decode`` calls the kernel launcher

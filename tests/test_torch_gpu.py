@@ -146,10 +146,19 @@ def test_range_scan_cap_limit_named(cuda):
      (2, 8, 2, 777, 128, 700, torch.float32),
      (1, 16, 1, 300, 128, 299, torch.bfloat16),  # G = 16 at D = 128
      (2, 4, 4, 64, 64, 33, torch.float32),
-     (4, 4, 2, 128, 32, 77, torch.bfloat16)],  # reduced configs' head dim
+     (4, 4, 2, 128, 32, 77, torch.bfloat16),  # reduced configs' head dim
+     # one block a cluster, a block's range ending inside a warp step, eight
+     # blocks (the serving call), a full cache; B = 1: two clusters
+     (1, 14, 2, 1024, 64, 1, torch.bfloat16),
+     (1, 14, 2, 1024, 64, 31, torch.bfloat16),
+     (1, 14, 2, 1024, 64, 33, torch.bfloat16),
+     (1, 14, 2, 1024, 64, 543, torch.bfloat16),
+     (1, 14, 2, 1024, 64, 1024, torch.bfloat16),
+     (2, 32, 2, 600, 128, 517, torch.bfloat16),  # G = 16 at D = 128, two passes of 8 rows
+     (1, 64, 1, 64, 32, 64, torch.bfloat16)],  # G·D = 2048 at D = 32: eight passes
 )
 def test_decode_attention_kernel_equals_plain(cuda, b, h, kh, s, d, kv_len, dtype):
-    """Split-KV kernel against the plain version on the same CUDA tensors:
+    """Cluster kernel against the plain version on the same CUDA tensors:
     f32 within 1e-5 (summation order); bf16 within 2 bf16 ulps at the
     output's largest magnitude (both round one f32 result once)."""
     gen = torch.Generator(device="cpu").manual_seed(b * s + kv_len)
@@ -172,6 +181,56 @@ def test_decode_attention_kernel_equals_plain(cuda, b, h, kh, s, d, kv_len, dtyp
     v[:, :, kv_len:] = float("nan")
     again = da_kernel.decode_attention_cuda(q, k, v, kv_len, scale)
     assert torch.equal(again, got)
+
+
+def _decode_inputs(cuda, b=8, h=14, kh=2, s=1024, d=64, seed=0):
+    gen = torch.Generator(device="cpu").manual_seed(seed)
+    return tuple(torch.randn(sh, generator=gen).to(cuda, torch.bfloat16)
+                 for sh in ((b, h, d), (b, kh, s, d), (b, kh, s, d)))
+
+
+def test_decode_attention_is_one_kernel_with_no_workspace(cuda):
+    """One call at the serving shape is one kernel on the card (the cluster
+    merges its partials itself) and allocates only its output."""
+    from torch.profiler import ProfilerActivity, profile
+
+    q, k, v = _decode_inputs(cuda)
+    da_kernel.decode_attention_cuda(q, k, v, 543, 0.125)  # built and warm
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(cuda)
+    before = torch.cuda.memory_allocated(cuda)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        out = da_kernel.decode_attention_cuda(q, k, v, 543, 0.125)
+        torch.cuda.synchronize()
+    kernels = [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    assert len(kernels) == 1, kernels
+    assert torch.cuda.max_memory_allocated(cuda) - before <= -(-out.numel() * out.element_size() // 512) * 512
+
+
+def test_decode_attention_graph_replay_equals_eager(cuda):
+    """Captured in a CUDA graph (as a decode step's graph would hold it) and
+    replayed on new cache contents, the call equals an eager call."""
+    q, k, v = _decode_inputs(cuda, seed=1)
+    eager = da_kernel.decode_attention_cuda(q, k, v, 543, 0.125)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        da_kernel.decode_attention_cuda(q, k, v, 543, 0.125)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = da_kernel.decode_attention_cuda(q, k, v, 543, 0.125)
+    for seed in (2, 3):
+        for dst, src in zip((q, k, v), _decode_inputs(cuda, seed=seed)):
+            dst.copy_(src)
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(out, da_kernel.decode_attention_cuda(q, k, v, 543, 0.125))
+    for dst, src in zip((q, k, v), _decode_inputs(cuda, seed=1)):
+        dst.copy_(src)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(out, eager)
 
 
 def test_decode_attention_limits_named(cuda):
@@ -208,7 +267,19 @@ def _poisoned(shape, dtype, gen, cuda):
      (1, 8, 1, 200, 128, True, 0, torch.float32),  # MQA at D = 128
      (2, 4, 2, 130, 32, True, 48, torch.float32),  # reduced configs' head dim, window
      (1, 4, 4, 65, 80, False, 0, torch.float32),
-     (3, 4, 2, 1, 64, True, 0, torch.float32)],  # one row
+     (3, 4, 2, 1, 64, True, 0, torch.float32),  # one row
+     # bf16 on the tensor cores: S off the 128-row block and the 64-column
+     # tile, D = 80 (a zero-filled second box) and 128, window edges inside
+     # a tile, G = 7 and MQA
+     (3, 14, 2, 1, 64, True, 0, torch.bfloat16),
+     (1, 14, 2, 65, 64, True, 0, torch.bfloat16),
+     (2, 14, 2, 129, 64, True, 0, torch.bfloat16),
+     (1, 8, 1, 1000, 128, True, 0, torch.bfloat16),  # MQA at D = 128
+     (1, 4, 2, 129, 80, False, 0, torch.bfloat16),
+     (2, 7, 1, 333, 80, True, 100, torch.bfloat16),
+     (1, 14, 2, 1000, 128, True, 37, torch.bfloat16),
+     (2, 4, 2, 130, 32, True, 48, torch.bfloat16),
+     (1, 6, 2, 300, 64, False, 70, torch.bfloat16)],  # window without causality
 )
 def test_flash_attention_kernel_equals_plain(cuda, b, h, kh, s, d, causal, window, dtype):
     """Forward kernel against the plain version on the same CUDA tensors:
@@ -250,6 +321,19 @@ def test_flash_attention_gradients_equal_plain_autograd(cuda, causal, window):
         grads.append([x.grad for x in xs])
     for a, b_ in zip(*grads):
         assert torch.equal(a, b_)
+
+
+def test_flash_attention_bf16_runs_on_the_tensor_cores(cuda):
+    """The bf16 instances are built on wgmma: the library's SASS holds HGMMA
+    instructions."""
+    import subprocess
+    from pathlib import Path
+
+    lib = _lib.build_all()["flash_attention"]
+    cuobjdump = Path("/usr/local/cuda/bin/cuobjdump")
+    sass = subprocess.run([str(cuobjdump) if cuobjdump.exists() else "cuobjdump", "-sass", str(lib)],
+                          capture_output=True, text=True, check=True).stdout
+    assert sum("HGMMA" in line for line in sass.splitlines()) > 0
 
 
 def test_flash_attention_limits_named(cuda):
