@@ -10,7 +10,8 @@ csrc`` (one ``nvcc`` per source, in parallel, into ``build/``), then:
 
 1. prints the card's name and power limit, and counts the kernels one
    decode-attention call (B7) runs on the card at the serve phase's shapes
-   (``torch.profiler``), which must be 1;
+   and one elimination-combine call (K3) at the tree path's round width
+   (``torch.profiler``, one session), each of which must be 1;
 2. drives the port's tree path, ``ABTree.apply_round`` in elim mode on one
    tree at the paper's b = 11 with int64 keys and values: prefill of half
    the key range in insert rounds (a first one of 4,096 lanes into the empty
@@ -22,7 +23,7 @@ csrc`` (one ``nvcc`` per source, in parallel, into ``build/``), then:
    of every kernel is zeroed before this path and read after it;
 3. drives the serving path: ``ServeEngine`` on qwen2-0.5b at its full
    width and depth (24 layers, bf16 compute over fp32 weights made from the
-   seed), max_batch 8, s_max 1024, 32 KV pages; 16 requests of 512-token
+   seed), max_batch 8, s_max 1024, 32 KV pages; 8 requests of 512-token
    prompts (two full prefix blocks), 70% of them one hot prompt, 32 new
    tokens each; run serial, then pipelined, with the launch counts zeroed
    before the serial run and read after the pipelined one.  Both runs must
@@ -51,7 +52,9 @@ csrc`` (one ``nvcc`` per source, in parallel, into ``build/``), then:
    timed, beside the least time the card needs for the call (its bytes at
    3.35 TB/s or its operations at the peak for their type, whichever is
    longer) and, where one PyTorch call computes a comparable function, that
-   call's time; flash attention also with the count of HGMMA (wgmma)
+   call's time; the descent (K1) also with the levels its longest walk
+   visits (the dependent loads of its chain), the combine (K3) with step
+   1's count; flash attention also with the count of HGMMA (wgmma)
    instructions in its built library, which must not be 0, and decode
    attention with step 1's count and the clusters of each size the card
    holds at once;
@@ -93,7 +96,7 @@ SERVE_KERNELS = TREE_KERNELS + ("decode_attention",)
 # serve phase: qwen2-0.5b at full width and depth
 SERVE_ARCH = "qwen2-0.5b"
 SERVE_ENGINE = dict(max_batch=8, s_max=1024, n_pages=32)
-SERVE_REQUESTS, SERVE_PROMPT, SERVE_MAX_NEW, SERVE_HOT_FRAC = 16, 512, 32, 0.7
+SERVE_REQUESTS, SERVE_PROMPT, SERVE_MAX_NEW, SERVE_HOT_FRAC = 8, 512, 32, 0.7
 TRACED_REQUESTS, TRACED_MAX_NEW = 2, 8
 STEP_TIMING_STEPS = 20
 # train phase: the Trainer on qwen2-0.5b at full width and depth, as
@@ -768,7 +771,9 @@ def time_ms(torch, fn, iters: int, warmup: int = 3) -> float:
 
 def graph_ms(torch, fn, iters: int = 20, reps: int = 5) -> float:
     """Device time per call: ``iters`` calls captured in one CUDA graph and
-    replayed ``reps`` times, so host launch cost drops out."""
+    replayed ``reps`` times, so host launch cost drops out.  The warm-up
+    calls run on the capture stream, so a kernel's per-stream scratch exists
+    before the capture."""
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):
@@ -777,7 +782,7 @@ def graph_ms(torch, fn, iters: int = 20, reps: int = 5) -> float:
     torch.cuda.current_stream().wait_stream(side)
     torch.cuda.synchronize()
     graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
+    with torch.cuda.graph(graph, stream=side):
         for _ in range(iters):
             fn()
     graph.replay()
@@ -800,25 +805,48 @@ def sass_count(lib_path, opcode: str) -> int:
     return sum(opcode in line for line in sass.splitlines())
 
 
-def kernels_per_call(torch, fn) -> int:
-    """Kernels the card runs for one call of ``fn`` (``torch.profiler``,
-    host and device activity, as the train phase profiles)."""
+def kernels_per_call(torch, calls) -> dict:
+    """Kernels the card runs for one call of each of ``calls`` (name ->
+    (a substring of its kernel's name, fn)), in one ``torch.profiler``
+    session (host and device activity, as the train phase profiles).  Each
+    fn runs once before the session, then once inside it between
+    synchronizes, so the device events come in call order: a call's events
+    run from its kernel up to the next call's kernel, and an event before
+    the first one fails.  Returns the counts and the device events' names
+    in order."""
     from torch.profiler import ProfilerActivity, profile
 
-    fn()
+    for _, fn in calls.values():
+        fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    return sum(1 for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA)
+        for _, fn in calls.values():
+            fn()
+            torch.cuda.synchronize()
+    events = sorted((e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA),
+                    key=lambda e: e.time_range.start)
+    names = list(calls)
+    counts = dict.fromkeys(names, 0)
+    at = -1
+    for e in events:
+        if at + 1 < len(names) and calls[names[at + 1]][0] in e.name:
+            at += 1
+        if at < 0:
+            raise AssertionError(f"device event {e.name!r} before the first counted kernel")
+        counts[names[at]] += 1
+    return counts, [e.name for e in events]
 
 
-def decode_kernels_per_call(torch, da_kernel, cfg) -> int:
-    """Kernels one B7 call runs on the card, at the serve phase's shapes
-    (its batch, heads and cache, the kv_len of its last decode step) on
-    seeded inputs; it must be 1.  Counted before any path runs, in the
-    process's first profiler session: after the train phase's profiled
-    step, a session this short came back with no device events at all."""
+def one_kernel_calls(torch, da_kernel, ec_kernel, zipf_keys, cfg) -> dict:
+    """Kernels one call of B7 and of K3 runs on the card, on seeded inputs
+    at the paths' shapes: B7 at the serve phase's (its batch, heads and
+    cache, the kv_len of its last decode step), K3 at the tree path's round
+    (1 x BATCH key-sorted Zipf ops, warmed up first, which sizes its
+    look-back scratch).  Each must be 1: B7 merges its partials in the
+    cluster, K3 clears its own scratch (no memset).  Counted before any path
+    runs, in the process's first profiler session: after the train phase's
+    profiled step, a session this short came back with no device events at
+    all."""
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     b, s_max = SERVE_ENGINE["max_batch"], SERVE_ENGINE["s_max"]
     q = torch.randn((b, cfg.n_heads, cfg.d_head), generator=gen, device="cuda").bfloat16()
@@ -826,10 +854,22 @@ def decode_kernels_per_call(torch, da_kernel, cfg) -> int:
             for _ in range(2))
     kv_len = SERVE_PROMPT + SERVE_MAX_NEW - 1
     scale = cfg.d_head ** -0.5
-    n = kernels_per_call(torch, lambda: da_kernel.decode_attention_cuda(q, k, v, kv_len, scale))
-    if n != 1:
-        raise AssertionError(f"decode_attention: one call ran {n} kernels, not 1")
-    return n
+    rng = np.random.default_rng(SEED)
+    keys = np.sort(zipf_keys(rng, BATCH, KEY_RANGE, 1.0))
+    head = np.r_[True, keys[1:] != keys[:-1]]
+    seg = np.cumsum(head) - 1
+    combine = tuple(torch.as_tensor(x, device="cuda")[None] for x in (
+        rng.integers(0, 4, BATCH).astype(np.int32), rng.integers(0, 1 << 40, BATCH), head,
+        (rng.random(BATCH) < 0.5)[seg], rng.integers(0, 1 << 40, BATCH)[seg]))
+    counts, events = kernels_per_call(torch, {
+        "decode_attention": ("decode_cluster_kernel",
+                             lambda: da_kernel.decode_attention_cuda(q, k, v, kv_len, scale)),
+        "elim_combine": ("elim_combine_kernel", lambda: ec_kernel.elim_combine_cuda(*combine)),
+    })
+    if any(n != 1 for n in counts.values()):
+        raise AssertionError(f"one call each ran {counts} kernels, not 1; the device events "
+                             f"in call order: {events}")
+    return counts
 
 
 def max_abs_err(torch, got, want) -> float:
@@ -856,7 +896,9 @@ def descend_bytes(torch, pool_keys, children, is_leaf, root, queries, max_height
     child id per distinct (row, taken index); per distinct leaf reached, its
     flag and the keys up to the last slot any of its queries must compare
     (the hit, or all b on a miss); one value per distinct (leaf, slot) hit;
-    the root ids, the queries and the outputs."""
+    the root ids, the queries and the outputs.  Also returns the levels the
+    longest walk visits, its leaf included: the dependent loads of K1's
+    chain (one a level)."""
     s, n, b = pool_keys.shape
     keys_f = pool_keys.reshape(s * n, b)
     ch_f = children.reshape(s * n, b)
@@ -864,11 +906,13 @@ def descend_bytes(torch, pool_keys, children, is_leaf, root, queries, max_height
     base = (torch.arange(s, device=queries.device) * n)[:, None]
     node = root.to(torch.int64)[:, None].expand(queries.shape).clone()
     internal, taken = set(), set()
+    levels = 1
     for _ in range(max_height):
         g = node + base
         lf = leaf_f[g]
         if bool(lf.all()):
             break
+        levels += 1
         idx = (keys_f[g][..., : b - 1] <= queries[..., None]).sum(-1)
         internal.update(torch.unique(g[~lf]).tolist())
         taken.update(torch.unique((g * b + idx)[~lf]).tolist())
@@ -885,7 +929,7 @@ def descend_bytes(torch, pool_keys, children, is_leaf, root, queries, max_height
     hits = torch.unique((g * b + slot)[found]).numel()
     pool = (len(internal) * ((b - 1) * 8 + 1) + len(taken) * 4
             + leaves.numel() + int(compared.sum()) * 8 + hits * 8)
-    return pool + queries.numel() * (8 + 4 + 1 + 4 + 8) + s * 4
+    return pool + queries.numel() * (8 + 4 + 1 + 4 + 8) + s * 4, levels
 
 
 def flash_tol(torch, want) -> float:
@@ -978,10 +1022,10 @@ def leaf_probe_replay(torch, td_kernel, lp_kernel, lp_ops, descend_call):
 
 
 def kernel_report(torch, mods, libs, summary, recorded, serve_summary, serve_recorded,
-                  decode_per_call, train_summary, train_recorded):
+                  per_call, train_summary, train_recorded):
     """Replay one main-path call per kernel against its plain version.
-    ``libs``: kernel name -> built library; ``decode_per_call``: the kernels
-    one decode-attention call ran."""
+    ``libs``: kernel name -> built library; ``per_call``: the kernels one
+    call of B7 and of K3 ran (``one_kernel_calls``)."""
     (td_kernel, td_ref, td_ops, ec_kernel, ec_ref, rs_kernel, rs_ref, da_kernel, da_ref,
      fa_kernel, fa_ops, fa_ref, lp_kernel, lp_ops, lp_ref) = mods
     rows = []
@@ -1009,6 +1053,7 @@ def kernel_report(torch, mods, libs, summary, recorded, serve_summary, serve_rec
 
     # K1 descend_probe: the search phase's call (first of the round)
     pk, pv, ch, lf, root, q, kw = recorded["descend_probe"][0]
+    nbytes, height = descend_bytes(torch, pk, ch, lf, root, q, kw["max_height"])
     entry(
         "descend_probe", "src/repro_torch/csrc/descend_probe.cu",
         "src/repro/kernels/tree_descend/kernel.py:95",
@@ -1016,8 +1061,8 @@ def kernel_report(torch, mods, libs, summary, recorded, serve_summary, serve_rec
         td_ref.descend_probe_ref(pk, pv, ch, lf, root, q, **kw),
         lambda: td_kernel.descend_probe_cuda(pk, pv, ch, lf, root, q, **kw),
         lambda: td_ref.descend_probe_ref(pk, pv, ch, lf, root, q, **kw),
-        descend_bytes(torch, pk, ch, lf, root, q, kw["max_height"]),
-        {"pool": list(pk.shape), "queries": list(q.shape)},
+        nbytes, {"pool": list(pk.shape), "queries": list(q.shape)},
+        extra={"height": height},
     )
 
     # K2 frontier_compact: the call with the most valid candidates
@@ -1047,6 +1092,7 @@ def kernel_report(torch, mods, libs, summary, recorded, serve_summary, serve_rec
         lambda: ec_ref.elim_combine_ref(ops, vals, head, p0, v0),
         ops.numel() * (4 + 8 + 1 + 1 + 8 + 1 + 8 + 1 + 8),
         {"ops": list(ops.shape)},
+        extra={"kernels_per_call": per_call["elim_combine"]},
     )
 
     # K4 range_scan: the round's accepted gather (the last call)
@@ -1105,7 +1151,7 @@ def kernel_report(torch, mods, libs, summary, recorded, serve_summary, serve_rec
         ops=4.0 * b * h * kv_len * d, ops_per_s=OPS_PER_S[str(q.dtype)],
         extra={"max_abs_want": float(want.abs().max()), "random_max_abs_err": r_err,
                "random_tolerance": r_tol, "random_max_abs_want": float(r_want.abs().max()),
-               "kernels_per_call": decode_per_call,
+               "kernels_per_call": per_call["decode_attention"],
                "cluster_plan": list(da_kernel.cluster_plan(b, kh, kv_len, capacity)),
                "cluster_capacity": [capacity(n) for n in range(1, da_kernel.MAX_CLUSTER + 1)]},
     )
@@ -1203,7 +1249,7 @@ def main() -> int:
     print(f"{smi} | torch.cuda.get_device_name(0) = {kind}", flush=True)
     from repro_torch.configs import get_config
 
-    decode_per_call = decode_kernels_per_call(torch, da_kernel, get_config(SERVE_ARCH))
+    per_call = one_kernel_calls(torch, da_kernel, ec_kernel, zipf_keys, get_config(SERVE_ARCH))
 
     # 2. the main path at full width
     summary, recorded = run_main_path(torch, core, lib, zipf_keys)
@@ -1225,7 +1271,7 @@ def main() -> int:
     rows = kernel_report(
         torch, (td_kernel, td_ref, td_ops, ec_kernel, ec_ref, rs_kernel, rs_ref, da_kernel, da_ref,
                 fa_kernel, fa_ops, fa_ref, lp_kernel, lp_ops, lp_ref),
-        libs, summary, recorded, serve_summary, serve_recorded, decode_per_call, train_summary,
+        libs, summary, recorded, serve_summary, serve_recorded, per_call, train_summary,
         train_recorded,
     )
     print(json.dumps({"kernels": rows}), flush=True)

@@ -189,13 +189,14 @@ def stream_of(device) -> int:
     return torch.cuda.current_stream(device).cuda_stream
 
 
-def bind(lib_name: str, fn_name: str, argtypes) -> ctypes._CFuncPtr:
-    """``lib_name``'s C entry ``fn_name`` with its argument types declared."""
+def bind(lib_name: str, fn_name: str, argtypes, restype=ctypes.c_int) -> ctypes._CFuncPtr:
+    """``lib_name``'s C entry ``fn_name`` with its argument and result types
+    declared."""
     fn = _fns.get(fn_name)
     if fn is None:
         fn = getattr(load(lib_name), fn_name)
         fn.argtypes = list(argtypes)
-        fn.restype = ctypes.c_int
+        fn.restype = restype
         _fns[fn_name] = fn
     return fn
 

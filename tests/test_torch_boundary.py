@@ -1,5 +1,5 @@
-"""Boundary of the port: ``src/repro_torch`` and ``chip_smoke.py`` import
-neither JAX nor the JAX package; the tree refuses to drop to the CPU on its
+"""Boundary of the port: ``src/repro_torch``, ``chip_smoke.py`` and the
+port's chip tools under ``tools/`` import neither JAX nor the JAX package; the tree refuses to drop to the CPU on its
 own; and every kernel wrapper sends a CUDA tensor to its kernel, never to
 the plain version."""
 import ast
@@ -19,7 +19,8 @@ from repro_torch.kernels.range_scan import kernel as rs_kernel, ops as rs_ops, r
 from repro_torch.kernels.tree_descend import kernel as td_kernel, ops as td_ops, ref as td_ref  # noqa: E402
 
 ROOT = Path(__file__).resolve().parents[1]
-PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+PORT_FILES = (sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+              + sorted((ROOT / "tools").glob("*.py")))
 
 
 def _imported_roots(path: Path):
@@ -36,7 +37,7 @@ def test_port_files_found():
     names = {p.name for p in PORT_FILES}
     assert {"abtree.py", "rounds.py", "elimination.py", "chip_smoke.py", "_lib.py",
             "engine.py", "pages.py", "backbone.py", "attention.py", "trainer.py", "step.py",
-            "adamw.py", "manager.py", "pipeline.py"} <= names
+            "adamw.py", "manager.py", "pipeline.py", "tree_kernel_ab.py"} <= names
 
 
 @pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(ROOT)))

@@ -151,3 +151,67 @@ def test_lane_masks_and_range_masking_equal_jax():
         telim.mask_range_lanes(torch.as_tensor(ops)).numpy(),
         np.asarray(jelim.mask_range_lanes(jnp.asarray(ops))),
     )
+
+
+def _take(t, idx):
+    return telim.Transition(*(f[:, idx] for f in t))
+
+
+def _where(m, a, b):
+    return telim.Transition(*(torch.where(m, x, y) for x, y in zip(a, b)))
+
+
+LOOK_BACK_CASES = {
+    "sorted": _sorted_batch(3000, 40, 5),
+    "one-key": _cross_tile(),  # one segment over every tile
+    "all-heads": _sorted_batch(700, 10**9, 6),
+    "hyp": _hypothesis_like(8, 100),
+}
+
+
+@pytest.mark.parametrize("tile", [1, 7, 256, 2048])
+@pytest.mark.parametrize("case", list(LOOK_BACK_CASES))
+def test_look_back_rule_gives_the_inclusive_transition(case, tile):
+    """The algebra the CUDA kernel's decoupled look-back relies on: cut a
+    row into tiles, compose each tile's aggregate with ``compose``, and
+    fold the aggregates back from each tile to the first one whose segment
+    flag is set (or to the row's first tile).  Composed with the tile's own
+    aggregate, that is the inclusive transition at the tile's end: applied
+    to a present and to an absent key it gives the JAX package's
+    ``elim_combine_ref`` ``after`` there."""
+    ops, vals, head, _, _ = LOOK_BACK_CASES[case]
+    t = telim.op_transition(*_torch((ops, vals, head)))
+    bsz = ops.size
+    n_tiles = -(-bsz // tile)
+    pad = n_tiles * tile - bsz
+    ident = telim.identity_like(_take(t, torch.zeros(pad, dtype=torch.long)))
+    t = telim.Transition(*(torch.cat([f, g], dim=1) for f, g in zip(t, ident)))
+    starts = torch.arange(n_tiles) * tile
+    agg = _take(t, starts)
+    for u in range(1, tile):
+        agg = telim.compose(agg, _take(t, starts + u))
+    k = torch.arange(n_tiles)
+    acc = telim.identity_like(agg)
+    done = (k == 0)[None]
+    stopped_on_flag = torch.zeros_like(done)
+    for d in range(1, n_tiles):
+        j = torch.clamp(k - d, min=0)
+        p = _take(agg, j)
+        active = ~done
+        acc = _where(active, telim.compose(p, acc), acc)
+        stopped_on_flag |= active & p.flag & (j > 0)[None]
+        done = done | (active & (p.flag | (j == 0)[None]))
+        if bool(done.all()):
+            break
+    incl = telim.compose(acc, agg)
+    ends = (torch.clamp(starts + tile, max=bsz) - 1).numpy()
+    for present in (True, False):
+        p0 = np.full(bsz, present)
+        v0 = np.full(bsz, 12345, dtype=np.int64)
+        _, _, want_p, want_v = jax.jit(jelim_combine_ref)(*_jax((ops, vals, head, p0, v0)))
+        got_p, got_v = telim.apply_transition(
+            incl, torch.as_tensor(p0[:n_tiles])[None], torch.as_tensor(v0[:n_tiles])[None])
+        assert np.array_equal(got_p.numpy()[0], np.asarray(want_p)[ends]), present
+        assert np.array_equal(got_v.numpy()[0], np.asarray(want_v)[ends]), present
+    if case == "sorted" and n_tiles > 2:  # many heads: some look-backs stop early
+        assert bool(stopped_on_flag.any())

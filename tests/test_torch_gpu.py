@@ -67,21 +67,124 @@ def _grown(cuda, n_keys=3000, b=11, seed=0):
     return t, keys
 
 
-@pytest.mark.parametrize("bsz", [1, 37, 4096])
-def test_descend_probe_kernel_equals_plain(cuda, bsz):
-    t, keys = _grown(cuda)
-    rng = np.random.default_rng(bsz)
-    q = rng.choice(keys, size=bsz).astype(np.int64)
-    q[bsz // 3 :: 3] = rng.integers(0, 10**6, len(q[bsz // 3 :: 3]))
-    q[-1] = EMPTY  # NOP lane
-    st = t.stacked
-    args = (st.keys, st.vals, st.children, st.is_leaf, st.root,
-            torch.as_tensor(q, device=cuda)[None])
-    kw = dict(max_height=t.cfg.max_height, notfound=NOTFOUND)
-    got = td_kernel.descend_probe_cuda(*args, **kw)
-    want = descend_probe_ref(*args, **kw)
+def _pool(b, n_keys, *, fan=None, leaf=None, shards=1, scratch_leaf=True, seed=0):
+    """A stacked (S, N, b) pool of search trees built bottom-up, as the
+    tree lays them out: each shard's ``n_keys`` distinct keys fill leaves
+    of ``leaf`` = (lo, hi) keys (1..b by default) in shuffled slots (EMPTY
+    elsewhere); internal nodes take
+    ``fan`` = (lo, hi) children (2..b by default), routers the least key of
+    children 1.., EMPTY routers and NULL (-1) children past the last.  Row
+    N-1 is the scratch row (EMPTY keys; a leaf unless ``scratch_leaf`` is
+    False, when NULL-child lanes walk to max_height).  Returns the pool's
+    tensors on the CPU, each shard's keys and the tallest shard's height."""
+    rng = np.random.default_rng(seed)
+    lo_fan, hi_fan = fan or (2, b)
+    lo_leaf, hi_leaf = leaf or (1, b)
+    shards_rows, roots, all_keys, height = [], [], [], 0
+    for _ in range(shards):
+        keys = np.sort(rng.choice(10**9, size=n_keys, replace=False)).astype(np.int64)
+        rows = []  # (keys, vals, children, is_leaf)
+        level, cut = [], 0
+        while cut < n_keys:
+            k = keys[cut: cut + int(rng.integers(lo_leaf, hi_leaf + 1))]
+            cut += k.size
+            slots = rng.permutation(b)[: k.size]
+            rk = np.full(b, EMPTY, np.int64)
+            rk[slots] = k
+            rows.append((rk, rng.integers(-(2**40), 2**40, b), np.full(b, -1, np.int32), True))
+            level.append((len(rows) - 1, int(k.min())))
+        h = 1
+        while len(level) > 1:
+            up, cut = [], 0
+            while cut < len(level):
+                kids = level[cut: cut + int(rng.integers(lo_fan, hi_fan + 1))]
+                cut += len(kids)
+                rk = np.full(b, EMPTY, np.int64)
+                rk[: len(kids) - 1] = [m for _, m in kids[1:]]
+                ch = np.full(b, -1, np.int32)
+                ch[: len(kids)] = [r for r, _ in kids]
+                rows.append((rk, np.zeros(b, np.int64), ch, False))
+                up.append((len(rows) - 1, kids[0][1]))
+            level, h = up, h + 1
+        shards_rows.append(rows)
+        roots.append(level[0][0])
+        all_keys.append(keys)
+        height = max(height, h)
+    n = max(len(r) for r in shards_rows) + 3  # free rows, then the scratch row
+    pk = np.full((shards, n, b), EMPTY, np.int64)
+    pv = np.zeros((shards, n, b), np.int64)
+    ch = np.full((shards, n, b), -1, np.int32)
+    lf = np.ones((shards, n), bool)
+    for s_, rows in enumerate(shards_rows):
+        for r, (rk, rv, rc, leaf) in enumerate(rows):
+            pk[s_, r], pv[s_, r], ch[s_, r], lf[s_, r] = rk, rv, rc, leaf
+    lf[:, n - 1] = scratch_leaf
+    pool = tuple(torch.as_tensor(x) for x in (pk, pv, ch, lf))
+    return (*pool, torch.as_tensor(roots, dtype=torch.int32)), all_keys, height
+
+
+def _probe_queries(keys, bsz, rng, *, sort=False, dup_pool=0, empty_every=10):
+    """Hits, misses (every third from bsz/3 on) and EMPTY lanes (NOPs, which
+    count every router and take a NULL child past a non-full node);
+    ``dup_pool`` > 0 draws the lanes from that many keys, key-sorted."""
+    src = rng.choice(keys, size=dup_pool, replace=False) if dup_pool else keys
+    q = rng.choice(src, size=bsz).astype(np.int64)
+    if not dup_pool:
+        q[bsz // 3:: 3] = rng.integers(0, 10**9, len(q[bsz // 3:: 3]))
+    q[::empty_every] = EMPTY
+    q[-1] = EMPTY
+    return np.sort(q) if sort else q
+
+
+# (b, n_keys, pool options, shards, bsz, query options); "grown": the tree
+# grown by ABTree rounds
+DESCEND_CASES = {
+    "1": ("grown", 1), "37": ("grown", 37), "4096": ("grown", 4096),
+    "root-leaf": (8, 5, dict(leaf=(8, 8)), 1, 64, {}),
+    "tall-b4": (4, 700, dict(fan=(2, 2)), 1, 4096, {}),  # 9+ levels
+    "b2": (2, 5000, {}, 1, 4096, {}),  # the narrowest group
+    "b4": (4, 20_000, {}, 1, 4096, {}),
+    "b8": (8, 20_000, {}, 1, 4096, {}),
+    "b11": (11, 50_000, {}, 1, 16_384, {}),
+    "b16": (16, 20_000, {}, 1, 4096, {}),
+    "b24-warp-group": (24, 20_000, {}, 1, 4096, {}),  # the warp, one slot a lane
+    "b40-looping-group": (40, 20_000, {}, 1, 4096, {}),
+    "S2": (11, 20_000, {}, 2, 4096, {}),
+    "sorted-dups": (11, 50_000, {}, 1, 16_384, dict(sort=True, dup_pool=40)),
+    "empty-null": (8, 3000, dict(fan=(2, 5), scratch_leaf=False), 1, 2048, dict(empty_every=2)),
+}
+
+
+@pytest.mark.parametrize("case", list(DESCEND_CASES))
+def test_descend_probe_kernel_equals_plain(cuda, case):
+    spec = DESCEND_CASES[case]
+    if spec[0] == "grown":
+        bsz = spec[1]
+        t, keys = _grown(cuda)
+        rng = np.random.default_rng(bsz)
+        q = rng.choice(keys, size=bsz).astype(np.int64)
+        q[bsz // 3 :: 3] = rng.integers(0, 10**6, len(q[bsz // 3 :: 3]))
+        q[-1] = EMPTY  # NOP lane
+        st = t.stacked
+        pool = (st.keys, st.vals, st.children, st.is_leaf, st.root)
+        queries = torch.as_tensor(q, device=cuda)[None]
+        max_height = t.cfg.max_height
+    else:
+        b, n_keys, popts, shards, bsz, qopts = spec
+        pool, keys, height = _pool(b, n_keys, shards=shards, seed=b + n_keys, **popts)
+        assert height == 1 if case == "root-leaf" else height >= (9 if case == "tall-b4" else 2)
+        pool = tuple(x.to(cuda) for x in pool)
+        rng = np.random.default_rng(bsz)
+        queries = torch.as_tensor(
+            np.stack([_probe_queries(k, bsz, rng, **qopts) for k in keys]), device=cuda)
+        max_height = height + 4
+    kw = dict(max_height=max_height, notfound=NOTFOUND)
+    got = td_kernel.descend_probe_cuda(*pool, queries, **kw)
+    want = descend_probe_ref(*pool, queries, **kw)
     for g, w, name in zip(got, want, ("leaf", "found", "slot", "val")):
         _eq(g, w, name)
+    if case == "empty-null":  # lanes that took a NULL child report -1
+        assert bool((want[0] == -1).any())
 
 
 @pytest.mark.parametrize("bsz,m,f,density", [(1, 96, 8, 0.1), (300, 96, 8, 0.5),
@@ -97,22 +200,153 @@ def test_frontier_compact_kernel_equals_plain(cuda, bsz, m, f, density):
         _eq(g, w, name)
 
 
-@pytest.mark.parametrize("bsz,n_keys", [(16, 3), (1000, 7), (5000, 200), (70000, 50)])
-def test_elim_combine_kernel_equals_plain(cuda, bsz, n_keys):
-    rng = np.random.default_rng(bsz)
-    keys = np.sort(rng.integers(0, n_keys, bsz))
-    ops = rng.integers(0, 4, bsz).astype(np.int32)
-    vals = rng.integers(-(2**62), 2**62, bsz).astype(np.int64)
-    head = np.ones(bsz, bool)
-    head[1:] = keys[1:] != keys[:-1]
-    seg = np.cumsum(head) - 1
-    p0 = (rng.random(seg.max() + 1) < 0.5)[seg]
-    v0 = rng.integers(-(2**62), 2**62, seg.max() + 1)[seg].astype(np.int64)
-    args = tuple(torch.as_tensor(x, device=cuda)[None] for x in (ops, vals, head, p0, v0))
+def _combine_rows(bsz, row_keys, seed):
+    """(S, B) combine inputs, one row per entry of ``row_keys``: key-sorted
+    ops over that many distinct keys (None: every op its own key), random
+    ops 0-3 and values, present0/val0 broadcast per segment.  A row whose
+    key count is negative starts inside a segment (no head at op 0)."""
+    rng = np.random.default_rng(seed)
+    rows = []
+    for n_keys in row_keys:
+        keys = np.arange(bsz) if n_keys is None else np.sort(rng.integers(0, abs(n_keys), bsz))
+        head = np.ones(bsz, bool)
+        head[1:] = keys[1:] != keys[:-1]
+        if n_keys is not None and n_keys < 0:
+            head[0] = False
+        seg = np.cumsum(head) - 1
+        p0 = (rng.random(seg.max() + 2) < 0.5)[seg]
+        v0 = rng.integers(-(2**62), 2**62, seg.max() + 2)[seg].astype(np.int64)
+        rows.append((rng.integers(0, 4, bsz).astype(np.int32),
+                     rng.integers(-(2**62), 2**62, bsz).astype(np.int64), head, p0, v0))
+    return tuple(np.stack(x) for x in zip(*rows))
+
+
+@pytest.mark.parametrize("bsz,row_keys", [
+    pytest.param(16, (3,), id="16-3"), pytest.param(1000, (7,), id="1000-7"),
+    pytest.param(5000, (200,), id="5000-200"), pytest.param(70000, (50,), id="70000-50"),
+    pytest.param(1, (1,), id="1-op"),
+    # (k, d): k of the kernel's tiles and d ops: one op short of a tile, on
+    # it, one past it; two tiles and one op, every op its own segment
+    pytest.param((1, -1), (40,), id="tile-1"), pytest.param((1, 0), (40,), id="tile"),
+    pytest.param((1, 1), (40,), id="tile+1"), pytest.param((2, 1), (None,), id="2tiles+1-all-heads"),
+    pytest.param(70000, (1,), id="70000-one-key"),  # one segment over every tile
+    pytest.param(5000, (1, 300, -20), id="S3"),  # one key / many / no head at op 0
+])
+def test_elim_combine_kernel_equals_plain(cuda, bsz, row_keys):
+    if isinstance(bsz, tuple):
+        bsz = bsz[0] * ec_kernel.tile_ops() + bsz[1]
+    args = tuple(torch.as_tensor(x, device=cuda)
+                 for x in _combine_rows(bsz, row_keys, bsz + len(row_keys)))
     got = ec_kernel.elim_combine_cuda(*args)
     want = elim_combine_ref(*args)
     for g, w, name in zip(got, want, ("bp", "bv", "ap", "av")):
         _eq(g, w, name)
+
+
+def test_elim_combine_graph_replay_equals_eager(cuda):
+    """A CUDA graph of three back-to-back calls, replayed twice in a row on
+    new inputs and once on the first ones, equals eager calls: the
+    look-back scratch is left cleared by every call, eager or replayed."""
+    bsz = 16_384
+
+    def inputs(seed):
+        return tuple(torch.as_tensor(x, device=cuda) for x in _combine_rows(bsz, (900,), seed))
+
+    args = inputs(1)
+    eager = ec_kernel.elim_combine_cuda(*args)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):  # sizes the capture stream's scratch
+        ec_kernel.elim_combine_cuda(*args)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=side):
+        outs = [ec_kernel.elim_combine_cuda(*args) for _ in range(3)]
+    for seed in (2, 2, 3):
+        for dst, src in zip(args, inputs(seed)):
+            dst.copy_(src)
+        graph.replay()
+        torch.cuda.synchronize()
+        want = ec_kernel.elim_combine_cuda(*args)
+        for out in outs:
+            for g, w in zip(out, want):
+                assert torch.equal(g, w)
+    for dst, src in zip(args, inputs(1)):
+        dst.copy_(src)
+    graph.replay()
+    torch.cuda.synchronize()
+    for g, w in zip(outs[-1], eager):
+        assert torch.equal(g, w)
+
+
+def test_elim_combine_on_two_streams_at_once(cuda):
+    """Calls on two streams that run at the same time each take their own
+    look-back scratch: both agree with the plain version, round after
+    round."""
+    bsz = 16_384
+    streams = (torch.cuda.Stream(), torch.cuda.Stream())
+    args = [tuple(torch.as_tensor(x, device=cuda) for x in _combine_rows(bsz, (900,), seed))
+            for seed in (5, 6)]
+    wants = [elim_combine_ref(*a) for a in args]
+    for st in streams:
+        st.wait_stream(torch.cuda.current_stream())
+    outs = [[], []]
+    for _ in range(8):
+        for k, st in enumerate(streams):
+            with torch.cuda.stream(st):
+                outs[k].append(ec_kernel.elim_combine_cuda(*args[k]))
+    torch.cuda.synchronize()
+    for k in range(2):
+        for out in outs[k]:
+            for g, w, name in zip(out, wants[k], ("bp", "bv", "ap", "av")):
+                _eq(g, w, name)
+
+
+@pytest.fixture(scope="module")
+def one_call_kernels():
+    """The device kernels of one B7 call (the serving shape) and one K3
+    call (the tree path's width), keyed by each call's kernel name, counted
+    in this file's only ``torch.profiler`` session: a short second session
+    in one process has come back with no device events at all.  Each call
+    runs once before the session (built, K3's scratch sized), then once
+    inside it between synchronizes, so the device events come in call
+    order: a call's run from its kernel up to the next call's kernel."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from torch.profiler import ProfilerActivity, profile
+
+    cuda = torch.device("cuda")
+    q, k, v = _decode_inputs(cuda)
+    combine = tuple(torch.as_tensor(x, device=cuda) for x in _combine_rows(16_384, (900,), 4))
+    calls = {
+        "decode_cluster_kernel": lambda: da_kernel.decode_attention_cuda(q, k, v, 543, 0.125),
+        "elim_combine_kernel": lambda: ec_kernel.elim_combine_cuda(*combine),
+    }
+    for fn in calls.values():
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for fn in calls.values():
+            fn()
+            torch.cuda.synchronize()
+    events = sorted((e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA),
+                    key=lambda e: e.time_range.start)
+    names = list(calls)
+    kernels = {name: [] for name in names}
+    at = -1
+    for e in events:
+        if at + 1 < len(names) and names[at + 1] in e.name:
+            at += 1
+        assert at >= 0, f"device event {e.name!r} before the first call's kernel"
+        kernels[names[at]].append(e.name)
+    return kernels
+
+
+def test_elim_combine_is_one_kernel_with_no_memset(cuda, one_call_kernels):
+    """One call at the tree path's width is one kernel on the card: the
+    look-back scratch needs no memset (the kernel clears what it used)."""
+    kernels = one_call_kernels["elim_combine_kernel"]
+    assert len(kernels) == 1, one_call_kernels
 
 
 @pytest.mark.parametrize("bsz,n,cap,dup", [(3, 88, 128, False), (64, 176, 16, True),
@@ -189,21 +423,18 @@ def _decode_inputs(cuda, b=8, h=14, kh=2, s=1024, d=64, seed=0):
                  for sh in ((b, h, d), (b, kh, s, d), (b, kh, s, d)))
 
 
-def test_decode_attention_is_one_kernel_with_no_workspace(cuda):
+def test_decode_attention_is_one_kernel_with_no_workspace(cuda, one_call_kernels):
     """One call at the serving shape is one kernel on the card (the cluster
     merges its partials itself) and allocates only its output."""
-    from torch.profiler import ProfilerActivity, profile
-
+    kernels = one_call_kernels["decode_cluster_kernel"]
+    assert len(kernels) == 1, one_call_kernels
     q, k, v = _decode_inputs(cuda)
     da_kernel.decode_attention_cuda(q, k, v, 543, 0.125)  # built and warm
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(cuda)
     before = torch.cuda.memory_allocated(cuda)
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        out = da_kernel.decode_attention_cuda(q, k, v, 543, 0.125)
-        torch.cuda.synchronize()
-    kernels = [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
-    assert len(kernels) == 1, kernels
+    out = da_kernel.decode_attention_cuda(q, k, v, 543, 0.125)
+    torch.cuda.synchronize()
     assert torch.cuda.max_memory_allocated(cuda) - before <= -(-out.numel() * out.element_size() // 512) * 512
 
 
