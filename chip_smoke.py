@@ -9,9 +9,10 @@ It builds the port's seven hand-written CUDA kernels from ``src/repro_torch/
 csrc`` (one ``nvcc`` per source, in parallel, into ``build/``), then:
 
 1. prints the card's name and power limit, and counts the kernels one
-   decode-attention call (B7) runs on the card at the serve phase's shapes
-   and one elimination-combine call (K3) at the tree path's round width
-   (``torch.profiler``, one session), each of which must be 1;
+   decode-attention call (B7) runs on the card at the serve phase's shapes,
+   and one elimination-combine call (K3), frontier-compaction call (K2) and
+   range-scan call (K4) at the tree path's shapes (``torch.profiler``, one
+   session), each of which must be 1;
 2. drives the port's tree path, ``ABTree.apply_round`` in elim mode on one
    tree at the paper's b = 11 with int64 keys and values: prefill of half
    the key range in insert rounds (a first one of 4,096 lanes into the empty
@@ -20,7 +21,11 @@ csrc`` (one ``nvcc`` per source, in parallel, into ``build/``), then:
    5% find, 5% range with span uniform in [1, 64]; scan cap 128).  Every
    round is checked lane for lane against ``DictOracle.apply_mixed_round``
    and the tree against ``check_invariants`` at the end.  The launch count
-   of every kernel is zeroed before this path and read after it;
+   of every kernel is zeroed before this path and read after it.  Then one
+   ``scan_round`` at cap 10,000 over an interval of more than 10,000 live
+   keys (the frontier grows to fit, and stays grown, so it runs after the
+   timed rounds) must equal ``DictOracle.range``: keys, values, count and
+   truncated;
 3. drives the serving path: ``ServeEngine`` on qwen2-0.5b at its full
    width and depth (24 layers, bf16 compute over fp32 weights made from the
    seed), max_batch 8, s_max 1024, 32 KV pages; 8 requests of 512-token
@@ -53,11 +58,14 @@ csrc`` (one ``nvcc`` per source, in parallel, into ``build/``), then:
    3.35 TB/s or its operations at the peak for their type, whichever is
    longer) and, where one PyTorch call computes a comparable function, that
    call's time; the descent (K1) also with the levels its longest walk
-   visits (the dependent loads of its chain), the combine (K3) with step
-   1's count; flash attention also with the count of HGMMA (wgmma)
-   instructions in its built library, which must not be 0, and decode
-   attention with step 1's count and the clusters of each size the card
-   holds at once;
+   visits (the dependent loads of its chain), K2, K3 and K4 with step 1's
+   counts; the range scan (K4) also on two seeded replays past the cap
+   the card's first kernel held (cap 8,193 over rows of 9,000 candidates,
+   cap 20,000 over rows of 24,000, EMPTY holes and duplicate keys), each
+   bit-equal to the plain version and timed; flash attention also with
+   the count of HGMMA (wgmma) instructions in its built library, which
+   must not be 0, and decode attention with step 1's count and the
+   clusters of each size the card holds at once;
 6. prints ``{"ok": true, "device": {...}}`` as its last line.
 
 Any failed check raises, so the script exits non-zero.  Without a CUDA card,
@@ -91,6 +99,11 @@ WARMUP, ROUNDS, TRACED_ROUNDS, RECORDER_OFF_ROUNDS = 3, 20, 3, 5
 # PERF.md.
 KEY_RANGE = 2_000_000
 SEED = 0
+# the end-to-end check of a cap above 8,192: one scan_round over
+# [LARGE_SCAN_LO, LARGE_SCAN_LO + LARGE_SCAN_SPAN), about 15,000 live keys
+LARGE_SCAN_CAP, LARGE_SCAN_LO, LARGE_SCAN_SPAN = 10_000, KEY_RANGE // 4, 30_000
+# K4 replays past that cap: (rows, candidates a row, cap)
+K4_LARGE = ((2, 9_000, 8_193), (2, 24_000, 20_000))
 TREE_KERNELS = ("descend_probe", "frontier_compact", "elim_combine", "range_scan")
 SERVE_KERNELS = TREE_KERNELS + ("decode_attention",)
 # serve phase: qwen2-0.5b at full width and depth
@@ -244,6 +257,9 @@ def run_main_path(torch, core, lib, zipf_keys):
     round_ms_off, _ = drive(RECORDER_OFF_ROUNDS, "recorder-off")
     traced_off = traced_breakdown("traced recorder-off")
     launches = {n: c.launches for n, c in counters.items()}
+    large_scan, recorded["large_cap_scan"] = large_cap_scan(torch, tree, oracle, counters)
+    log(f"scan_round cap {LARGE_SCAN_CAP}: {large_scan['wall_ms']:.1f} ms, "
+        f"{large_scan['count']} keys, launches {large_scan['launches']}")
 
     st = tree.state
     check_invariants(st, tree.cfg)
@@ -277,8 +293,44 @@ def run_main_path(torch, core, lib, zipf_keys):
         "traced_rounds": TRACED_ROUNDS,
         "traced_ms_per_round": traced_on,
         "traced_ms_per_round_recorder_off": traced_off,
+        "large_cap_scan": large_scan,
     }
     return summary, recorded
+
+
+def large_cap_scan(torch, tree, oracle, counters):
+    """One ``scan_round`` on the card at ``LARGE_SCAN_CAP`` over an interval
+    holding more of the tree's live keys than that, checked against
+    ``DictOracle.range``; its wall time and the launches it made, and the
+    launch arguments of its K2 and K4 calls (for ``kernel_report``)."""
+    lo, hi = LARGE_SCAN_LO, LARGE_SCAN_LO + LARGE_SCAN_SPAN
+    want = oracle.range(lo, hi)
+    if len(want) <= LARGE_SCAN_CAP:
+        raise AssertionError(f"[{lo}, {hi}) holds {len(want)} keys, not more than {LARGE_SCAN_CAP}")
+    scan_kernels = ("frontier_compact", "range_scan")
+    before = {n: c.launches for n, c in counters.items()}
+    for k in scan_kernels:
+        counters[k].calls = []
+    frontier = tree._scan_frontier
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = tree.scan_round([lo], [hi], cap=LARGE_SCAN_CAP)
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    calls = {}
+    for k in scan_kernels:
+        calls[k], counters[k].calls = counters[k].calls, None
+    n = int(out.count[0])
+    got = list(zip(out.keys[0, :n].tolist(), out.vals[0, :n].tolist()))
+    if n != LARGE_SCAN_CAP or not bool(out.truncated[0]) or got != want[:LARGE_SCAN_CAP]:
+        raise AssertionError(f"scan_round cap {LARGE_SCAN_CAP} over [{lo}, {hi}): count {n}, "
+                             f"truncated {bool(out.truncated[0])}, rows differ from the oracle's "
+                             f"{len(want)}")
+    return {"lo": lo, "hi": hi, "cap": LARGE_SCAN_CAP, "live_keys": len(want), "count": n,
+            "truncated": True, "wall_ms": wall_ms, "frontier_before": frontier,
+            "frontier_after": tree._scan_frontier,
+            "calls": {k: len(calls[k]) for k in scan_kernels},
+            "launches": {k: counters[k].launches - before[k] for k in scan_kernels}}, calls
 
 
 # ----------------------------------------------------------------------------
@@ -837,13 +889,16 @@ def kernels_per_call(torch, calls) -> dict:
     return counts, [e.name for e in events]
 
 
-def one_kernel_calls(torch, da_kernel, ec_kernel, zipf_keys, cfg) -> dict:
-    """Kernels one call of B7 and of K3 runs on the card, on seeded inputs
-    at the paths' shapes: B7 at the serve phase's (its batch, heads and
-    cache, the kv_len of its last decode step), K3 at the tree path's round
-    (1 x BATCH key-sorted Zipf ops, warmed up first, which sizes its
-    look-back scratch).  Each must be 1: B7 merges its partials in the
-    cluster, K3 clears its own scratch (no memset).  Counted before any path
+def one_kernel_calls(torch, da_kernel, ec_kernel, td_kernel, rs_kernel, zipf_keys, cfg) -> dict:
+    """Kernels one call of B7, K3, K2 and K4 runs on the card, on seeded
+    inputs at the paths' shapes: B7 at the serve phase's (its batch, heads
+    and cache, the kv_len of its last decode step), K3 at the tree path's
+    round (1 x BATCH key-sorted Zipf ops, warmed up first, which sizes its
+    look-back scratch), K2 at a scan level's (1,024 rows of 96 candidates
+    into f = 8) and K4 at the scan's gather (1,024 rows of 88 candidates,
+    cap 128).  Each must be 1: B7 merges its partials in the cluster, K3
+    clears its own scratch (no memset), K2 writes the finished frontier,
+    valid plane and overflow, K4 its four outputs.  Counted before any path
     runs, in the process's first profiler session: after the train phase's
     profiled step, a session this short came back with no device events at
     all."""
@@ -861,10 +916,19 @@ def one_kernel_calls(torch, da_kernel, ec_kernel, zipf_keys, cfg) -> dict:
     combine = tuple(torch.as_tensor(x, device="cuda")[None] for x in (
         rng.integers(0, 4, BATCH).astype(np.int32), rng.integers(0, 1 << 40, BATCH), head,
         (rng.random(BATCH) < 0.5)[seg], rng.integers(0, 1 << 40, BATCH)[seg]))
+    cand = torch.as_tensor(rng.integers(0, 1 << 16, (1024, 96)).astype(np.int32), device="cuda")
+    cvalid = torch.as_tensor(rng.random((1024, 96)) < 0.1, device="cuda")
+    ck = torch.as_tensor(rng.integers(0, KEY_RANGE, (1024, 88)), device="cuda")
+    lo = torch.as_tensor(rng.integers(0, KEY_RANGE, 1024), device="cuda")
+    hi = lo + 64
     counts, events = kernels_per_call(torch, {
         "decode_attention": ("decode_cluster_kernel",
                              lambda: da_kernel.decode_attention_cuda(q, k, v, kv_len, scale)),
         "elim_combine": ("elim_combine_kernel", lambda: ec_kernel.elim_combine_cuda(*combine)),
+        "frontier_compact": ("compact_warp_rows",
+                             lambda: td_kernel.frontier_compact_cuda(cand, cvalid, 8, scratch=7)),
+        "range_scan": ("range_scan_warp_rows",
+                       lambda: rs_kernel.range_scan_cuda(ck, ck, lo, hi, cap=128)),
     })
     if any(n != 1 for n in counts.values()):
         raise AssertionError(f"one call each ran {counts} kernels, not 1; the device events "
@@ -930,6 +994,76 @@ def descend_bytes(torch, pool_keys, children, is_leaf, root, queries, max_height
     pool = (len(internal) * ((b - 1) * 8 + 1) + len(taken) * 4
             + leaves.numel() + int(compared.sum()) * 8 + hits * 8)
     return pool + queries.numel() * (8 + 4 + 1 + 4 + 8) + s * 4, levels
+
+
+def range_scan_bytes(cand_keys, cap: int, emitted: int) -> int:
+    """Bytes a range scan must move: every candidate key, lo and hi, the
+    values of the emitted keys, and the outputs (cap keys and values, the
+    count and the flag a row)."""
+    return cand_keys.numel() * 8 + cand_keys.shape[0] * (16 + cap * 16 + 5) + emitted * 8
+
+
+def range_scan_large_caps(torch, rs_kernel, rs_ref) -> list:
+    """K4 at caps past 8,192 (``K4_LARGE``): seeded rows of duplicate keys
+    (a key space a third of the row) with 30% EMPTY holes, each bit-equal to
+    the plain version and timed as CUDA-graph replays beside its bound."""
+    rng = np.random.default_rng(SEED)
+    empty = torch.iinfo(torch.int64).max
+    out = []
+    for rows, n, cap in K4_LARGE:
+        keys = rng.integers(0, n // 3, (rows, n))
+        keys[rng.random((rows, n)) < 0.3] = empty
+        lo = rng.integers(0, n // 6, rows)
+        args = tuple(torch.as_tensor(x, dtype=torch.int64, device="cuda") for x in (
+            keys, rng.integers(0, 1 << 40, (rows, n)), lo, lo + rng.integers(n // 6, n // 3, rows)))
+        out.append({"rows": rows, "n": n, **range_scan_replay(torch, rs_kernel, rs_ref, args, cap)})
+    return out
+
+
+def side_replay(torch, name, k_fn, p_fn, nbytes) -> dict:
+    """A kernel's call held bit-equal to its plain version on the same
+    inputs, both timed as CUDA-graph replays, beside the call's bytes bound."""
+    err = max_abs_err(torch, k_fn(), p_fn())
+    if err != 0.0:
+        raise AssertionError(f"{name}: kernel differs from its plain version (max |err| {err})")
+    return {"max_abs_err": err, "ms": graph_ms(torch, k_fn), "plain_ms": graph_ms(torch, p_fn),
+            "bytes": int(nbytes), "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3}
+
+
+def frontier_compact_bytes(cand, valid, f: int) -> int:
+    """Bytes a compaction must move: the valid plane, the ids of the
+    candidates that land in a slot, and the frontier, its valid plane and
+    the overflow flag."""
+    landed = int(valid.sum(1).clamp(max=f).sum())
+    return valid.numel() + landed * 4 + cand.shape[0] * (f * 5 + 1)
+
+
+def range_scan_replay(torch, rs_kernel, rs_ref, args, cap: int) -> dict:
+    """``side_replay`` of one K4 call, with its count of emitted keys."""
+    want = rs_ref.range_scan_ref(*args, cap)
+    emitted = int(want[2].sum())
+    return {"cap": cap, "emitted": emitted, "truncated": int(want[3].sum()),
+            **side_replay(torch, f"range_scan at cap {cap}, n {args[0].shape[1]}",
+                          lambda: rs_kernel.range_scan_cuda(*args, cap=cap),
+                          lambda: rs_ref.range_scan_ref(*args, cap),
+                          range_scan_bytes(args[0], cap, emitted))}
+
+
+def large_cap_scan_replays(torch, td_kernel, td_ref, rs_kernel, rs_ref, calls) -> dict:
+    """The widest K2 and K4 calls of ``large_cap_scan`` (block mode, on the
+    inputs the main path gave them) against their plain versions."""
+    cand, valid, kw = max(calls["frontier_compact"],
+                          key=lambda c: (c[0].shape[1], int(c[1].sum())))
+    f, scratch = kw["f"], kw["scratch"]
+    k2 = {"cand": list(cand.shape), "f": f, "valid": int(valid.sum()),
+          **side_replay(torch, f"frontier_compact at {list(cand.shape)} -> {f}",
+                        lambda: td_kernel.frontier_compact_cuda(cand, valid, f, scratch=scratch),
+                        lambda: td_ref.frontier_compact_plain(cand, valid, f, scratch=scratch),
+                        frontier_compact_bytes(cand, valid, f))}
+    ck, cv, lo, hi, kw = max(calls["range_scan"], key=lambda c: c[0].numel())
+    k4 = {"cand": list(ck.shape), **range_scan_replay(torch, rs_kernel, rs_ref, (ck, cv, lo, hi),
+                                                      kw["cap"])}
+    return {"frontier_compact": k2, "range_scan": k4}
 
 
 def flash_tol(torch, want) -> float:
@@ -1025,8 +1159,8 @@ def kernel_report(torch, mods, libs, summary, recorded, serve_summary, serve_rec
                   per_call, train_summary, train_recorded):
     """Replay one main-path call per kernel against its plain version.
     ``libs``: kernel name -> built library; ``per_call``: the kernels one
-    call of B7 and of K3 ran (``one_kernel_calls``)."""
-    (td_kernel, td_ref, td_ops, ec_kernel, ec_ref, rs_kernel, rs_ref, da_kernel, da_ref,
+    call of B7, K3, K2 and K4 ran (``one_kernel_calls``)."""
+    (td_kernel, td_ref, ec_kernel, ec_ref, rs_kernel, rs_ref, da_kernel, da_ref,
      fa_kernel, fa_ops, fa_ref, lp_kernel, lp_ops, lp_ref) = mods
     rows = []
 
@@ -1065,20 +1199,26 @@ def kernel_report(torch, mods, libs, summary, recorded, serve_summary, serve_rec
         extra={"height": height},
     )
 
-    # K2 frontier_compact: the call with the most valid candidates
+    # K2 frontier_compact: the call with the most valid candidates; one
+    # launch writes the finished triple.  K2's and K4's widest calls of the
+    # large-cap scan (block mode) are replayed beside their rows.
     calls = recorded["frontier_compact"]
     cand, valid, kw = max(calls, key=lambda c: int(c[1].sum()))
-    f = kw["f"]
-    scratch = -7  # any id: both versions are finished by the same wrapper
+    f, scratch = kw["f"], kw["scratch"]
+    landed = int(valid.sum(1).clamp(max=f).sum())
+    large = large_cap_scan_replays(torch, td_kernel, td_ref, rs_kernel, rs_ref,
+                                   recorded["large_cap_scan"])
     entry(
         "frontier_compact", "src/repro_torch/csrc/frontier_compact.cu",
         "src/repro/kernels/tree_descend/kernel.py:187",
-        td_ops.finish_compact(*td_kernel.frontier_compact_cuda(cand, valid, f), f, scratch),
-        td_ops.finish_compact(*td_ref.frontier_compact_plain(cand, valid, f), f, scratch),
-        lambda: td_kernel.frontier_compact_cuda(cand, valid, f),
-        lambda: td_ref.frontier_compact_plain(cand, valid, f),
-        cand.numel() * 5 + cand.shape[0] * (f + 1) * 4,
+        td_kernel.frontier_compact_cuda(cand, valid, f, scratch=scratch),
+        td_ref.frontier_compact_plain(cand, valid, f, scratch=scratch),
+        lambda: td_kernel.frontier_compact_cuda(cand, valid, f, scratch=scratch),
+        lambda: td_ref.frontier_compact_plain(cand, valid, f, scratch=scratch),
+        frontier_compact_bytes(cand, valid, f),
         {"cand": list(cand.shape), "f": f},
+        extra={"kernels_per_call": per_call["frontier_compact"], "landed": landed,
+               "large_cap_scan": large["frontier_compact"]},
     )
 
     # K3 elim_combine: the round's combine
@@ -1111,9 +1251,12 @@ def kernel_report(torch, mods, libs, summary, recorded, serve_summary, serve_rec
         want,
         lambda: rs_kernel.range_scan_cuda(ck, cv, lo, hi, cap=cap),
         lambda: rs_ref.range_scan_ref(ck, cv, lo, hi, cap),
-        ck.numel() * 8 + ck.shape[0] * (16 + cap * 16 + 5) + emitted * 8,
+        range_scan_bytes(ck, cap, emitted),
         {"cand": list(ck.shape), "cap": cap},
         lib_ms=lib_ms,
+        extra={"kernels_per_call": per_call["range_scan"],
+               "large_cap": range_scan_large_caps(torch, rs_kernel, rs_ref),
+               "large_cap_scan": large["range_scan"]},
     )
     # B7 decode_attention: the serve path's last decode call, then seeded
     # random q/k/v at the same shapes, where every live column's weight
@@ -1235,7 +1378,7 @@ def main() -> int:
     from repro_torch.kernels.flash_attention import kernel as fa_kernel, ops as fa_ops, ref as fa_ref
     from repro_torch.kernels.leaf_probe import kernel as lp_kernel, ops as lp_ops, ref as lp_ref
     from repro_torch.kernels.range_scan import kernel as rs_kernel, ref as rs_ref
-    from repro_torch.kernels.tree_descend import kernel as td_kernel, ops as td_ops, ref as td_ref
+    from repro_torch.kernels.tree_descend import kernel as td_kernel, ref as td_ref
 
     # 1. set-up: build every kernel, name the card
     t0 = time.perf_counter()
@@ -1249,7 +1392,8 @@ def main() -> int:
     print(f"{smi} | torch.cuda.get_device_name(0) = {kind}", flush=True)
     from repro_torch.configs import get_config
 
-    per_call = one_kernel_calls(torch, da_kernel, ec_kernel, zipf_keys, get_config(SERVE_ARCH))
+    per_call = one_kernel_calls(torch, da_kernel, ec_kernel, td_kernel, rs_kernel, zipf_keys,
+                                get_config(SERVE_ARCH))
 
     # 2. the main path at full width
     summary, recorded = run_main_path(torch, core, lib, zipf_keys)
@@ -1269,7 +1413,7 @@ def main() -> int:
 
     # 5. every kernel against its plain version at main-path shapes
     rows = kernel_report(
-        torch, (td_kernel, td_ref, td_ops, ec_kernel, ec_ref, rs_kernel, rs_ref, da_kernel, da_ref,
+        torch, (td_kernel, td_ref, ec_kernel, ec_ref, rs_kernel, rs_ref, da_kernel, da_ref,
                 fa_kernel, fa_ops, fa_ref, lp_kernel, lp_ops, lp_ref),
         libs, summary, recorded, serve_summary, serve_recorded, per_call, train_summary,
         train_recorded,

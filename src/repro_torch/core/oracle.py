@@ -119,6 +119,12 @@ class DictOracle:
                 scans.append(None)
         return results, found, scans
 
+    def range(self, lo: int, hi: int) -> List[Tuple[int, int]]:
+        """All (k, v) with lo ≤ k < hi, ascending — the linearized result a
+        scan round must produce (clip to ``cap`` to compare truncated
+        scans)."""
+        return sorted((k, v) for k, v in self.d.items() if lo <= k < hi)
+
     def items(self) -> dict:
         return dict(sorted(self.d.items()))
 

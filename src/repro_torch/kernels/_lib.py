@@ -16,7 +16,8 @@ Nothing here runs at import time: the CPU tests import every module of the
 port on a machine with no ``nvcc`` and no card.
 
 Each kernel also keeps a :class:`LaunchCounter`.  Its ``launches`` count
-goes up by one where the kernel is launched and nowhere else, so a run can
+goes up by the number of kernels a call launches, where it launches them
+and nowhere else (one, but two in K4's block mode), so a run can
 show which kernels its main path went through; with ``calls`` set to a
 list (or a ``deque`` with a ``maxlen`` to keep only the latest), the
 launcher also appends the arguments of every launch (the chip smoke test
@@ -59,8 +60,8 @@ class LaunchCounter:
         self.launches = 0
         self.calls: Optional[List[tuple]] = None
 
-    def launched(self, args: tuple) -> None:
-        self.launches += 1
+    def launched(self, args: tuple, kernels: int = 1) -> None:
+        self.launches += kernels
         if self.calls is not None:
             self.calls.append(args)
 

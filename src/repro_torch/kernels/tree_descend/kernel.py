@@ -47,23 +47,26 @@ def descend_probe_cuda(
     return leaf, found, slot, val
 
 
-def frontier_compact_cuda(cand, valid, f: int):
-    """CUDA compaction; returns ``(raw (B, f) int32, total (B,) int32)``
-    like ``ref.frontier_compact_plain`` (slots past ``total`` unwritten)."""
+def frontier_compact_cuda(cand, valid, f: int, *, scratch: int):
+    """CUDA compaction, finished in the one launch: returns ``(frontier
+    (B, f) int32, valid (B, f) bool, overflow (B,) bool)`` like
+    ``ref.frontier_compact_plain``, slots past the row's count holding
+    ``scratch``."""
     dev = cand.device
     bsz, m = cand.shape
     _lib.require(cand, "cand", torch.int32, (bsz, m), dev)
     _lib.require(valid, "valid", torch.bool, (bsz, m), dev)
-    raw = torch.empty((bsz, f), dtype=torch.int32, device=dev)
-    total = torch.empty((bsz,), dtype=torch.int32, device=dev)
+    frontier = torch.empty((bsz, f), dtype=torch.int32, device=dev)
+    fvalid = torch.empty((bsz, f), dtype=torch.bool, device=dev)
+    overflow = torch.empty((bsz,), dtype=torch.bool, device=dev)
     fn = _lib.bind(
         "frontier_compact", "frontier_compact_launch",
-        [_lib.P] * 4 + [_lib.I32] * 3 + [_lib.P],
+        [_lib.P] * 5 + [_lib.I32] * 4 + [_lib.P],
     )
     err = fn(
-        cand.data_ptr(), valid.data_ptr(), raw.data_ptr(), total.data_ptr(),
-        bsz, m, f, _lib.stream_of(dev),
+        cand.data_ptr(), valid.data_ptr(), frontier.data_ptr(), fvalid.data_ptr(),
+        overflow.data_ptr(), bsz, m, f, scratch, _lib.stream_of(dev),
     )
     _lib.check(err, "frontier_compact")
-    FRONTIER_COMPACT.launched((cand, valid, dict(f=f)))
-    return raw, total
+    FRONTIER_COMPACT.launched((cand, valid, dict(f=f, scratch=scratch)))
+    return frontier, fvalid, overflow

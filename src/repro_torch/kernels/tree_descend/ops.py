@@ -38,14 +38,6 @@ def descend_probe(
     )
 
 
-def finish_compact(raw: torch.Tensor, total: torch.Tensor, f: int, scratch: int):
-    """``(frontier, valid, overflow)`` from the kernel's raw slots and row
-    totals: slots past the total hold ``scratch`` (JAX ``ops.py:116-117``)."""
-    fvalid = torch.arange(f, device=raw.device)[None, :] < total[:, None]
-    frontier = torch.where(fvalid, raw, torch.tensor(scratch, dtype=torch.int32, device=raw.device))
-    return frontier, fvalid, total > f
-
-
 def frontier_compact(
     cand: torch.Tensor,  # (B, M) int32 candidate node ids
     valid: torch.Tensor,  # (B, M) bool
@@ -56,9 +48,8 @@ def frontier_compact(
     """Stable compaction of each row's valid candidates into a width-``f``
     frontier.  Returns ``(frontier (B, f) int32, valid (B, f) bool,
     overflow (B,))``; invalid slots hold ``scratch``.  Bit-identical to the
-    argsort oracle ``ref.frontier_compact_ref``."""
+    argsort oracle ``ref.frontier_compact_ref``.  On the card this is one
+    kernel, which writes the finished outputs."""
     if _lib.on_cuda(cand):
-        raw, total = kernel.frontier_compact_cuda(cand, valid, f)
-    else:
-        raw, total = ref.frontier_compact_plain(cand, valid, f)
-    return finish_compact(raw, total, f, scratch)
+        return kernel.frontier_compact_cuda(cand, valid, f, scratch=scratch)
+    return ref.frontier_compact_plain(cand, valid, f, scratch=scratch)

@@ -106,18 +106,19 @@ def frontier_compact_ref(
     valid_out = torch.gather(valid, 1, order)[:, :f]
     total = valid.sum(1)
     return (
-        torch.where(valid_out, frontier, torch.tensor(scratch, dtype=torch.int32)),
+        torch.where(valid_out, frontier, scratch),
         valid_out,
         total > f,
     )
 
 
-def frontier_compact_plain(cand: torch.Tensor, valid: torch.Tensor, f: int):
+def frontier_compact_plain(cand: torch.Tensor, valid: torch.Tensor, f: int, *, scratch: int):
     """Plain version of the compaction kernel: exclusive cumsum rank plus one
-    scatter.  Returns ``(raw (B, f) int32, total (B,) int32)``; ``raw`` is
-    meaningful only in slots below ``total`` (the wrapper masks the rest).
-    Invalid and overflowing candidates land in an extra column ``f`` that is
-    sliced off (JAX's ``.at[].set(mode="drop")``)."""
+    scatter, finished as the kernel finishes it (JAX ``ops.py:116-117``).
+    Returns ``(frontier (B, f) int32, valid (B, f) bool, overflow (B,))``
+    with ``scratch`` in the slots past each row's valid count.  Invalid and
+    overflowing candidates land in an extra column ``f`` that is sliced off
+    (JAX's ``.at[].set(mode="drop")``)."""
     vi = valid.to(torch.int32)
     rank = torch.cumsum(vi, dim=1, dtype=torch.int32) - vi
     total = vi.sum(1, dtype=torch.int32)
@@ -125,4 +126,5 @@ def frontier_compact_plain(cand: torch.Tensor, valid: torch.Tensor, f: int):
     raw = torch.zeros((cand.shape[0], f + 1), dtype=torch.int32, device=cand.device)
     # duplicate writes happen only in the dropped column f
     raw.scatter_(1, idx, cand.to(torch.int32))
-    return raw[:, :f], total
+    fvalid = torch.arange(f, device=cand.device)[None, :] < total[:, None]
+    return torch.where(fvalid, raw[:, :f], scratch), fvalid, total > f

@@ -130,7 +130,7 @@ def test_kernel_launcher_raises_without_a_build(monkeypatch, tmp_path):
     monkeypatch.setattr(_lib, "Path", lambda p: tmp_path / "no-nvcc")
     x = torch.zeros((1, 8), dtype=torch.int32)
     with pytest.raises(RuntimeError, match="nvcc"):
-        td_kernel.frontier_compact_cuda(x, x.bool(), 2)
+        td_kernel.frontier_compact_cuda(x, x.bool(), 2, scratch=0)
 
 
 def test_library_name_follows_headers_and_flags(monkeypatch, tmp_path):

@@ -187,15 +187,23 @@ def test_descend_probe_kernel_equals_plain(cuda, case):
         assert bool((want[0] == -1).any())
 
 
-@pytest.mark.parametrize("bsz,m,f,density", [(1, 96, 8, 0.1), (300, 96, 8, 0.5),
-                                             (64, 1200, 64, 0.3), (7, 96, 8, 1.0),
-                                             (5, 96, 8, 0.0)])
+@pytest.mark.parametrize("bsz,m,f,density", [
+    (1, 96, 8, 0.1), (300, 96, 8, 0.5), (64, 1200, 64, 0.3), (7, 96, 8, 1.0),
+    (5, 96, 8, 0.0),
+    (1, 72, 8, 0.3), (1024, 72, 8, 0.1),  # the serving indexes' rows (b = 8)
+    (1, 1, 1, 1.0), (9, 1024, 100, 0.1), (9, 1025, 100, 0.1),  # the warp mode's ends
+    (1, 2400, 200, 0.08), (3, 24_000, 2048, 0.08),  # rows after a wide scan
+    (2, 24_000, 2048, 0.0), (2, 24_000, 2048, 1.0),
+])
 def test_frontier_compact_kernel_equals_plain(cuda, bsz, m, f, density):
-    gen = torch.Generator(device="cpu").manual_seed(m * f)
+    """The finished (frontier, valid, overflow) of the one-launch kernel
+    against the plain version's, on rows a warp takes and rows a block
+    takes, overflowing and not."""
+    gen = torch.Generator(device="cpu").manual_seed(m * f + bsz)
     cand = torch.randint(0, 4096, (bsz, m), generator=gen, dtype=torch.int32).to(cuda)
     valid = (torch.rand((bsz, m), generator=gen) < density).to(cuda)
-    got = td_ops.finish_compact(*td_kernel.frontier_compact_cuda(cand, valid, f), f, 4097)
-    want = td_ops.finish_compact(*frontier_compact_plain(cand, valid, f), f, 4097)
+    got = td_kernel.frontier_compact_cuda(cand, valid, f, scratch=4097)
+    want = frontier_compact_plain(cand, valid, f, scratch=4097)
     for g, w, name in zip(got, want, ("frontier", "valid", "overflow")):
         _eq(g, w, name)
 
@@ -304,13 +312,16 @@ def test_elim_combine_on_two_streams_at_once(cuda):
 
 @pytest.fixture(scope="module")
 def one_call_kernels():
-    """The device kernels of one B7 call (the serving shape) and one K3
-    call (the tree path's width), keyed by each call's kernel name, counted
-    in this file's only ``torch.profiler`` session: a short second session
-    in one process has come back with no device events at all.  Each call
-    runs once before the session (built, K3's scratch sized), then once
-    inside it between synchronizes, so the device events come in call
-    order: a call's run from its kernel up to the next call's kernel."""
+    """The device kernels of one B7 call (the serving shape), one K3, K2
+    and K4 call (the tree path's shapes: K2 1,024 x 96 -> 8, K4 1,024 x 88
+    at cap 128) and one K4 call in block mode (2 x 3,000 at cap 4,096),
+    keyed by each call's first kernel name, counted in this file's only
+    ``torch.profiler`` session: a short second session in one process has
+    come back with no device events at all.  Each call runs once before the
+    session (built, K3's scratch sized), then once inside it between
+    synchronizes, so the device events come in call order: a call's run
+    from its first kernel up to the next call's.  Returns those kernels and
+    what the launch counters added for each call."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
     from torch.profiler import ProfilerActivity, profile
@@ -318,17 +329,30 @@ def one_call_kernels():
     cuda = torch.device("cuda")
     q, k, v = _decode_inputs(cuda)
     combine = tuple(torch.as_tensor(x, device=cuda) for x in _combine_rows(16_384, (900,), 4))
+    gen = torch.Generator(device="cpu").manual_seed(7)
+    cand = torch.randint(0, 4096, (1024, 96), generator=gen, dtype=torch.int32).to(cuda)
+    cvalid = (torch.rand((1024, 96), generator=gen) < 0.1).to(cuda)
+    ck = torch.randint(0, 2000, (1024, 88), generator=gen).to(cuda)
+    lo = torch.randint(0, 2000, (1024,), generator=gen).to(cuda)
+    hi = lo + 64
+    bk = torch.randint(0, 2000, (2, 3000), generator=gen).to(cuda)
     calls = {
         "decode_cluster_kernel": lambda: da_kernel.decode_attention_cuda(q, k, v, 543, 0.125),
         "elim_combine_kernel": lambda: ec_kernel.elim_combine_cuda(*combine),
+        "compact_warp_rows": lambda: td_kernel.frontier_compact_cuda(cand, cvalid, 8, scratch=5),
+        "range_scan_warp_rows": lambda: rs_kernel.range_scan_cuda(ck, ck, lo, hi, cap=128),
+        "range_scan_sort_runs": lambda: rs_kernel.range_scan_cuda(bk, bk, lo[:2], hi[:2], cap=4096),
     }
     for fn in calls.values():
         fn()
     torch.cuda.synchronize()
+    counted = {}
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for fn in calls.values():
+        for name, fn in calls.items():
+            before = sum(c.launches for c in _lib.COUNTERS.values())
             fn()
             torch.cuda.synchronize()
+            counted[name] = sum(c.launches for c in _lib.COUNTERS.values()) - before
     events = sorted((e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA),
                     key=lambda e: e.time_range.start)
     names = list(calls)
@@ -339,37 +363,88 @@ def one_call_kernels():
             at += 1
         assert at >= 0, f"device event {e.name!r} before the first call's kernel"
         kernels[names[at]].append(e.name)
-    return kernels
+    return kernels, counted
+
+
+@pytest.mark.parametrize("name", ["compact_warp_rows", "range_scan_warp_rows"])
+def test_scan_kernels_are_one_kernel_a_call(cuda, one_call_kernels, name):
+    """One K2 call writes the finished frontier, valid plane and overflow,
+    and one K4 call its four outputs, each in one kernel on the card (no
+    fill, copy or elementwise finish around it)."""
+    assert len(one_call_kernels[0][name]) == 1, one_call_kernels
+
+
+@pytest.mark.parametrize("name", ["compact_warp_rows", "elim_combine_kernel",
+                                  "range_scan_warp_rows", "range_scan_sort_runs",
+                                  "decode_cluster_kernel"])
+def test_launch_counters_count_the_kernels_a_call_ran(cuda, one_call_kernels, name):
+    """A call adds to its launch counter the number of kernels it ran on the
+    card: one, but two in K4's block mode (sort the runs, then rank)."""
+    kernels, counted = one_call_kernels
+    assert counted[name] == len(kernels[name]), one_call_kernels
+    if name == "range_scan_sort_runs":
+        assert len(kernels[name]) == 2 and "range_scan_rank_runs" in kernels[name][1], kernels
 
 
 def test_elim_combine_is_one_kernel_with_no_memset(cuda, one_call_kernels):
     """One call at the tree path's width is one kernel on the card: the
     look-back scratch needs no memset (the kernel clears what it used)."""
-    kernels = one_call_kernels["elim_combine_kernel"]
+    kernels = one_call_kernels[0]["elim_combine_kernel"]
     assert len(kernels) == 1, one_call_kernels
 
 
-@pytest.mark.parametrize("bsz,n,cap,dup", [(3, 88, 128, False), (64, 176, 16, True),
-                                           (5, 3000, 4096, True), (2, 40, 8192, False)])
-def test_range_scan_kernel_equals_plain(cuda, bsz, n, cap, dup):
+@pytest.mark.parametrize("bsz,n,cap,dup,every", [
+    (3, 88, 128, False, False), (64, 176, 16, True, False), (5, 3000, 4096, True, False),
+    (2, 40, 8192, False, False),
+    (1024, 88, 128, False, False), (16, 64, 256, True, False),  # tree path; evict_range's cap
+    (3, 256, 128, True, True), (3, 257, 128, True, True),  # the warp mode's last n, the block's first
+    (2, 9000, 8193, True, False), (2, 24_000, 20_000, True, False),  # caps past 8,192
+    (2, 9000, 8193, True, True), (2, 24_000, 20_000, True, True),  # every slot matches
+])
+def test_range_scan_kernel_equals_plain(cuda, bsz, n, cap, dup, every):
+    """Warp mode and block mode against the plain version, at every cap:
+    EMPTY holes and duplicate keys, or (``every``) rows whose every slot is
+    a match, so that a cap below n truncates."""
     rng = np.random.default_rng(n + cap)
     keys = rng.integers(0, 5000 if dup else 10**9, (bsz, n)).astype(np.int64)
-    keys[rng.random((bsz, n)) < 0.3] = EMPTY
+    if not every:
+        keys[rng.random((bsz, n)) < 0.3] = EMPTY
     vals = rng.integers(0, 10**6, (bsz, n)).astype(np.int64)
-    lo = rng.integers(0, 2500, bsz).astype(np.int64)
-    hi = lo + rng.integers(0, 10**9, bsz)
+    lo = np.zeros(bsz, np.int64) if every else rng.integers(0, 2500, bsz).astype(np.int64)
+    hi = np.full(bsz, 10**9, np.int64) if every else lo + rng.integers(0, 10**9, bsz)
     args = tuple(torch.as_tensor(x, device=cuda) for x in (keys, vals, lo, hi))
     got = rs_kernel.range_scan_cuda(*args, cap=cap)
     want = range_scan_ref(*args, cap)
     for g, w, name in zip(got, want, ("keys", "vals", "count", "truncated")):
         _eq(g, w, name)
+    if every:
+        assert bool((want[3] == (n > cap)).all())
 
 
-def test_range_scan_cap_limit_named(cuda):
-    x = torch.zeros((1, 4), dtype=torch.int64, device=cuda)
-    lo = torch.zeros((1,), dtype=torch.int64, device=cuda)
-    with pytest.raises(ValueError, match=str(rs_kernel.MAX_CAP)):
-        rs_kernel.range_scan_cuda(x, x, lo, lo, cap=rs_kernel.MAX_CAP + 1)
+def test_scan_round_past_cap_8192_equals_oracle(cuda):
+    """``ABTree.scan_round`` on the card at cap 10,000 over an interval of
+    more than 10,000 live keys (the frontier grows to fit), and at the
+    interval's own count, equals ``DictOracle.range``: keys, values, count
+    and truncated."""
+    rng = np.random.default_rng(11)
+    t, o = ABTree(TreeConfig(capacity=4096, b=11, a=2, max_height=24), device=cuda), DictOracle()
+    keys = rng.choice(60_000, size=30_000, replace=False).astype(np.int64)
+    vals = rng.integers(0, 10**9, keys.size).astype(np.int64)
+    starts = [0] + list(range(256, keys.size, 8192))  # a narrow first round seeds the leaves
+    for i, j in zip(starts, starts[1:] + [keys.size]):
+        ops = np.full(j - i, OP_INSERT, np.int32)
+        t.apply_round(ops, keys[i:j], vals[i:j])
+        o.apply_round(ops, keys[i:j], vals[i:j])
+    lo, hi, cap = 5_000, 45_000, 10_000
+    want = o.range(lo, hi)
+    assert len(want) > cap
+    for c in (cap, len(want)):
+        out = t.scan_round([lo, 0], [hi, 0], cap=c)
+        n = int(out.count[0])
+        assert n == min(len(want), c) and bool(out.truncated[0]) == (len(want) > c)
+        assert list(zip(out.keys[0, :n].tolist(), out.vals[0, :n].tolist())) == want[:c]
+        assert int(out.count[1]) == 0
+    assert t._scan_frontier > 8  # the frontier grew past its first width
 
 
 @pytest.mark.parametrize(
@@ -426,7 +501,7 @@ def _decode_inputs(cuda, b=8, h=14, kh=2, s=1024, d=64, seed=0):
 def test_decode_attention_is_one_kernel_with_no_workspace(cuda, one_call_kernels):
     """One call at the serving shape is one kernel on the card (the cluster
     merges its partials itself) and allocates only its output."""
-    kernels = one_call_kernels["decode_cluster_kernel"]
+    kernels = one_call_kernels[0]["decode_cluster_kernel"]
     assert len(kernels) == 1, one_call_kernels
     q, k, v = _decode_inputs(cuda)
     da_kernel.decode_attention_cuda(q, k, v, 543, 0.125)  # built and warm

@@ -1,6 +1,6 @@
 """Port parity of the range_scan kernel's plain version: against the JAX
-int64 reference (``range_scan_ref``) for candidate widths up to 1024, caps
-below and above the width, and rows holding a key twice; against the
+int64 reference (``range_scan_ref``) for candidate widths up to 24,000, caps
+below and above the width (up to 20,000), and rows holding a key twice; against the
 Pallas kernel in interpret mode on unique-key int32 rows.  Integer outputs,
 zero tolerance (``np.array_equal``)."""
 import numpy as np
@@ -35,11 +35,14 @@ def _rows(bsz, n, seed, *, dup: bool, empty):
 @pytest.mark.parametrize(
     "bsz,n,cap,dup",
     [(4, 16, 8, False), (3, 88, 128, False), (8, 128, 16, True), (2, 512, 128, True),
-     (2, 1024, 128, False), (1, 1024, 2048, True), (5, 33, 1, True), (3, 7, 64, True)],
+     (2, 1024, 128, False), (1, 1024, 2048, True), (5, 33, 1, True), (3, 7, 64, True),
+     # caps past the 8,192 the card's first kernel held in shared memory
+     (2, 9000, 8193, True), (2, 24_000, 20_000, True)],
 )
 def test_range_scan_plain_equals_jax_ref(bsz, n, cap, dup):
     """int64 rows, EMPTY holes, caps below and above n, duplicate keys (the
-    stable argsort keeps candidate order between equal keys)."""
+    stable argsort keeps candidate order between equal keys), and caps above
+    8,192, which the card's kernel now answers too."""
     keys, vals, lo, hi = _rows(bsz, n, n * cap + dup, dup=dup, empty=EMPTY64)
     want = jrange_scan_ref(*(jnp.asarray(x, jnp.int64) for x in (keys, vals, lo, hi)), cap)
     args = tuple(torch.as_tensor(x, dtype=torch.int64) for x in (keys, vals, lo, hi))
@@ -79,3 +82,33 @@ def test_range_scan_plain_equals_pallas_interpret(bsz, n, cap):
     assert np.array_equal(got[1].numpy(), np.asarray(pv).astype(np.int64))
     assert np.array_equal(got[2].numpy(), np.asarray(pc))
     assert np.array_equal(got[3].numpy(), np.asarray(pt))
+
+
+def test_scan_round_past_cap_8192_equals_both_oracles():
+    """``ABTree.scan_round`` on the CPU at cap 10,000 over an interval of
+    more than 10,000 live keys (the cap the card now answers too), and at
+    the interval's own count: equal to the port's ``DictOracle.range`` and
+    to the JAX package's, fed the same contents."""
+    from repro.core import DictOracle as JOracle
+    from repro_torch.core import OP_INSERT, ABTree, DictOracle, TreeConfig
+
+    rng = np.random.default_rng(16)
+    keys = rng.choice(30_000, size=15_000, replace=False).astype(np.int64)
+    vals = rng.integers(0, 10**9, keys.size).astype(np.int64)
+    tree = ABTree(TreeConfig(capacity=4096, b=11, a=2, max_height=24), device="cpu")
+    # a narrow first round seeds the leaves (an empty tree takes about one
+    # retry pass per 6 lanes of its first round), wider rounds follow
+    starts = [0] + list(range(256, keys.size, 4096))
+    for i, j in zip(starts, starts[1:] + [keys.size]):
+        tree.apply_round(np.full(j - i, OP_INSERT, np.int32), keys[i:j], vals[i:j])
+    port, ref = DictOracle(), JOracle()
+    for o in (port, ref):
+        o.apply_round([OP_INSERT] * keys.size, keys.tolist(), vals.tolist())
+    lo, hi, cap = 1_000, 26_000, 10_000
+    want = ref.range(lo, hi)
+    assert port.range(lo, hi) == want and len(want) > cap
+    for c in (cap, len(want)):
+        out = tree.scan_round([lo], [hi], cap=c)
+        n = int(out.count[0])
+        assert n == min(len(want), c) and bool(out.truncated[0]) == (len(want) > c)
+        assert list(zip(out.keys[0, :n].tolist(), out.vals[0, :n].tolist())) == want[:c]

@@ -24,6 +24,7 @@ from repro_torch.kernels.tree_descend import (  # noqa: E402
     descend_probe,
     descend_ref,
     frontier_compact,
+    frontier_compact_plain,
     frontier_compact_ref,
     probe_ref,
 )
@@ -126,10 +127,12 @@ def test_empty_query_reaches_scratch_through_null_child(grown):
 @pytest.mark.parametrize(
     "bsz,m,f,density",
     [(1, 72, 8, 0.1), (8, 72, 8, 0.5), (16, 288, 32, 0.2), (5, 1152, 128, 0.05),
-     (4, 144, 16, 1.0), (4, 144, 16, 0.0), (33, 96, 8, 0.15)],
+     (4, 144, 16, 1.0), (4, 144, 16, 0.0), (33, 96, 8, 0.15),
+     (3, 2400, 200, 0.08)],  # rows past a warp's reach on the card (f = 200)
 )
 def test_frontier_compact_plain_equals_jax(bsz, m, f, density):
-    """The plain version (cumsum rank + scatter) and the port's argsort
+    """The plain version (cumsum rank + scatter, finished with ``scratch``
+    as the kernel finishes it), the public wrapper and the port's argsort
     oracle against the JAX argsort oracle and the interpreted Pallas kernel,
     including overflowing, all-valid and all-invalid rows."""
     rng = np.random.default_rng(int(m * f * (1 + density * 10)))
@@ -139,9 +142,14 @@ def test_frontier_compact_plain_equals_jax(bsz, m, f, density):
     want = jfrontier_compact_ref(*jargs, f, scratch=4097)
     pallas = jfrontier_compact(*jargs, f, scratch=4097, use_pallas=True)
     targs = (torch.as_tensor(cand), torch.as_tensor(valid))
+    plain = frontier_compact_plain(*targs, f, scratch=4097)
     got = frontier_compact(*targs, f, scratch=4097)
     oracle = frontier_compact_ref(*targs, f, scratch=4097)
-    for g, o, w, p, name in zip(got, oracle, want, pallas, ("frontier", "valid", "overflow")):
+    for pl, g, o, w, p, name in zip(plain, got, oracle, want, pallas,
+                                    ("frontier", "valid", "overflow")):
+        assert pl.dtype == g.dtype and pl.shape == g.shape, name
+        assert np.array_equal(pl.numpy(), np.asarray(w)), f"plain vs ref {name}"
+        assert np.array_equal(pl.numpy(), np.asarray(p)), f"plain vs pallas {name}"
         assert np.array_equal(g.numpy(), np.asarray(w)), f"ref {name}"
-        assert np.array_equal(g.numpy(), np.asarray(p)), f"pallas {name}"
         assert np.array_equal(o.numpy(), np.asarray(w)), f"oracle {name}"
+    assert plain[0].dtype == torch.int32 and plain[1].dtype == torch.bool
