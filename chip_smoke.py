@@ -26,6 +26,26 @@ csrc`` (one ``nvcc`` per source, in parallel, into ``build/``), then:
    keys (the frontier grows to fit, and stays grown, so it runs after the
    timed rounds) must equal ``DictOracle.range``: keys, values, count and
    truncated;
+   then occ mode: the tree's final state and a copy of its oracle in
+   ``ABTree(mode="occ")``, one warm-up and three measured Zipf(1.0) rounds
+   and three uniform rounds of the same width and mix (each a run of
+   duplicate-rank sub-rounds), every round checked lane for lane and the
+   tree's invariants at the end, with the launch counts zeroed before and
+   read after; and three uniform rounds through an elim tree holding a
+   copy of the same state, beside them;
+   then the forest, ``ABForest(n_shards=4, ...)`` at the same b = 11 over
+   the same key range and mix, twice: with ``auto_repartition=True`` and
+   fewer keys (a cut listed in PERF.md; the hot head of the Zipf keys makes
+   it retire cold shards, each action timed with its sweep and its
+   re-insertion by the forest's tracer spans), then with the static
+   partition at 10^6 keys; each with three warm-up and ten measured
+   16,384-lane rounds checked against the oracle and
+   ``check_forest_invariants``, the second with one
+   ``scan_stream`` (cap 128) across its first split point against
+   ``DictOracle.range``; then the serving
+   indexes sharded four ways (``PrefixIndex`` / ``SessionIndex`` as
+   ``ServeEngine(index_shards=4)`` builds them) through a few hundred
+   publish / lookup / evict calls, each checked against a ``DictOracle``;
 3. drives the serving path: ``ServeEngine`` on qwen2-0.5b at its full
    width and depth (24 layers, bf16 compute over fp32 weights made from the
    seed), max_batch 8, s_max 1024, 32 KV pages; 8 requests of 512-token
@@ -52,8 +72,10 @@ csrc`` (one ``nvcc`` per source, in parallel, into ``build/``), then:
    their dtype at the output's largest magnitude, on the path's tensors and
    on seeded random ones of the same shapes; flash attention also windowed,
    ragged and non-causal, and its gradients equal to the plain version's
-   autograd); the leaf probe, which no path calls, runs over the leaf rows
-   the tree path's search reached and must give K1's own answers; all are
+   autograd); the descent (K1) and the combine (K3) also on the static
+   forest's first measured search call, at S = 4; the leaf probe, which no path calls, runs
+   over the leaf rows the tree path's search reached and must give K1's
+   own answers; all are
    timed, beside the least time the card needs for the call (its bytes at
    3.35 TB/s or its operations at the peak for their type, whichever is
    longer) and, where one PyTorch call computes a comparable function, that
@@ -104,6 +126,22 @@ SEED = 0
 LARGE_SCAN_CAP, LARGE_SCAN_LO, LARGE_SCAN_SPAN = 10_000, KEY_RANGE // 4, 30_000
 # K4 replays past that cap: (rows, candidates a row, cap)
 K4_LARGE = ((2, 9_000, 8_193), (2, 24_000, 20_000))
+# occ phase: the tree path's final tree copied into ABTree(mode="occ"), at
+# the tree path's width and mix; then uniform rounds through both modes
+OCC_WARMUP, OCC_ROUNDS, UNIFORM_ROUNDS = 1, 3, 3
+# forest phase: ABForest(n_shards=4, PAPER, key_space=(0, KEY_RANGE)) at the
+# tree path's mix, once with auto_repartition=True and FOREST_PREFILL keys,
+# once with the static partition and the tree path's 10^6.  The first holds
+# fewer keys: Zipf(1.0) traffic makes that forest retire its cold shards,
+# and each retirement re-inserts the moved keys densely into an emptied
+# range at about one retry pass per 6 keys, so its time grows with the
+# prefill (at 500,000 keys the warm-up ran past 690 s on an H100 80GB HBM3;
+# PERF.md section 4)
+FOREST_SHARDS, FOREST_PREFILL = 4, 50_000
+FOREST_WARMUP, FOREST_ROUNDS = 3, 10
+FOREST_STREAM_CAP, FOREST_STREAM_HALF = 128, 20_000  # scan_stream around splits[0]
+# sharded indexes without a model: steps of (publish, lookup, evict) calls
+INDEX_SHARDS, INDEX_STEPS = 4, 100
 TREE_KERNELS = ("descend_probe", "frontier_compact", "elim_combine", "range_scan")
 SERVE_KERNELS = TREE_KERNELS + ("decode_attention",)
 # serve phase: qwen2-0.5b at full width and depth
@@ -140,10 +178,12 @@ def log(msg: str) -> None:
 # ----------------------------------------------------------------------------
 
 
-def mixed_round(rng, batch: int, key_range: int, zipf_keys, ops_mod):
+def mixed_round(rng, batch: int, key_range: int, zipf_keys, ops_mod, uniform: bool = False):
     """One round of the skewed update-heavy mix (ycsb_e_stream's encoding
-    for range lanes: key = lo, val = span)."""
-    keys = zipf_keys(rng, batch, key_range, 1.0)
+    for range lanes: key = lo, val = span); ``uniform`` draws the keys
+    uniformly instead of from Zipf(1.0)."""
+    keys = (rng.integers(0, key_range, batch).astype(np.int64) if uniform
+            else zipf_keys(rng, batch, key_range, 1.0))
     u = rng.random(batch)
     ops = np.select(
         [u < 0.45, u < 0.90, u < 0.95],
@@ -177,16 +217,38 @@ def check_round(out, want, ops, range_code, round_name: str) -> None:
                 raise AssertionError(f"{round_name}: range lane {i} rows differ from the oracle")
 
 
+TREE_CFG = dict(capacity=1 << 16, b=11, a=2, max_height=24)  # the PAPER preset
+
+
+def prefill(tree, oracle, core, rng, n_keys: int, key_range: int, name: str) -> float:
+    """Insert ``n_keys`` distinct keys of [0, key_range) in oracle-checked
+    rounds: a first one of PREFILL_FIRST_BATCH lanes into the empty tree,
+    then rounds of PREFILL_BATCH.  Returns the seconds it took."""
+    keys = rng.choice(key_range, size=n_keys, replace=False).astype(np.int64)
+    t0 = time.perf_counter()
+    starts = [0] + list(range(PREFILL_FIRST_BATCH, n_keys, PREFILL_BATCH))
+    for i, j in zip(starts, starts[1:] + [n_keys]):
+        chunk = keys[i:j]
+        ops = np.full(chunk.size, core.OP_INSERT, np.int32)
+        vals = rng.integers(0, 1 << 40, chunk.size).astype(np.int64)
+        out = tree.apply_round(ops, chunk, vals)
+        check_round(out, oracle.apply_mixed_round(ops, chunk, vals), ops, core.OP_RANGE,
+                    f"{name} prefill {i}")
+        log(f"{name} prefill {i + chunk.size}/{n_keys}: {time.perf_counter() - t0:.1f}s, "
+            f"{int(tree.stacked.alloc.sum())} nodes")
+    return time.perf_counter() - t0
+
+
 def run_main_path(torch, core, lib, zipf_keys):
     """Prefill + mixed rounds on the card, oracle-checked.  Returns the
-    run's summary and the launch arguments each kernel got in the last
-    round."""
+    run's summary, the launch arguments each kernel got in the last round,
+    and the tree and its oracle (the occ phase starts from them)."""
     from repro_torch.core.oracle import check_invariants
     from repro_torch.obs.recorder import Recorder
     from repro_torch.obs.tracer import NULL_TRACER, Tracer
 
     dev = torch.device("cuda")
-    cfg = core.TreeConfig(capacity=1 << 16, b=11, a=2, max_height=24)
+    cfg = core.TreeConfig(**TREE_CFG)
     rng = np.random.default_rng(SEED)
     tree = core.ABTree(cfg, mode="elim")
     oracle = core.DictOracle()
@@ -194,18 +256,7 @@ def run_main_path(torch, core, lib, zipf_keys):
     lib.reset_counts()
 
     n_prefill = KEY_RANGE // 2
-    prefill = rng.choice(KEY_RANGE, size=n_prefill, replace=False).astype(np.int64)
-    t0 = time.perf_counter()
-    starts = [0] + list(range(PREFILL_FIRST_BATCH, n_prefill, PREFILL_BATCH))
-    for i, j in zip(starts, starts[1:] + [n_prefill]):
-        chunk = prefill[i:j]
-        ops = np.full(chunk.size, core.OP_INSERT, np.int32)
-        vals = rng.integers(0, 1 << 40, chunk.size).astype(np.int64)
-        out = tree.apply_round(ops, chunk, vals)
-        check_round(out, oracle.apply_mixed_round(ops, chunk, vals), ops, core.OP_RANGE, f"prefill {i}")
-        log(f"prefill {i + chunk.size}/{n_prefill}: {time.perf_counter() - t0:.1f}s, "
-            f"{int(tree.stacked.alloc.sum())} nodes")
-    prefill_s = time.perf_counter() - t0
+    prefill_s = prefill(tree, oracle, core, rng, n_prefill, KEY_RANGE, "tree")
 
     m = tree.metrics
     counters = {n: lib.COUNTERS[n] for n in TREE_KERNELS}
@@ -295,7 +346,7 @@ def run_main_path(torch, core, lib, zipf_keys):
         "traced_ms_per_round_recorder_off": traced_off,
         "large_cap_scan": large_scan,
     }
-    return summary, recorded
+    return summary, recorded, tree, oracle
 
 
 def large_cap_scan(torch, tree, oracle, counters):
@@ -331,6 +382,276 @@ def large_cap_scan(torch, tree, oracle, counters):
             "frontier_after": tree._scan_frontier,
             "calls": {k: len(calls[k]) for k in scan_kernels},
             "launches": {k: counters[k].launches - before[k] for k in scan_kernels}}, calls
+
+
+# ----------------------------------------------------------------------------
+# occ phase, forest phase, sharded indexes
+# ----------------------------------------------------------------------------
+
+
+def launch_counts(lib) -> dict:
+    return {n: lib.counter(n).launches for n in TREE_KERNELS}
+
+
+def timed_rounds(torch, lib, tree, oracle, core, zipf_keys, rng, n_rounds, name, *,
+                 uniform=False, each=None):
+    """``n_rounds`` oracle-checked mixed rounds of BATCH lanes on ``tree``
+    (an ABTree or ABForest, either mode): per round its wall ms, the
+    sub-rounds it ran (occ) and the K1 / K3 launches it made.  ``each(r)``
+    runs before round r."""
+    k1, k3 = lib.counter("descend_probe"), lib.counter("elim_combine")
+    rows = []
+    for r in range(n_rounds):
+        if each is not None:
+            each(r)
+        ops, keys, vals = mixed_round(rng, BATCH, KEY_RANGE, zipf_keys, core, uniform=uniform)
+        sub0, k1_0, k3_0 = tree.stats()["subrounds"], k1.launches, k3.launches
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = tree.apply_round(ops, keys, vals, scan_cap=128)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        check_round(out, oracle.apply_mixed_round(ops, keys, vals, cap=128), ops, core.OP_RANGE,
+                    f"{name} round {r}")
+        rows.append({"ms": ms, "subrounds": tree.stats()["subrounds"] - sub0,
+                     "k1": k1.launches - k1_0, "k3": k3.launches - k3_0,
+                     "shards": tree.n_shards})
+    return rows
+
+
+class FirstCall(list):
+    """A launch counter's ``calls`` that keeps only the first launch (a long
+    list would hold every launch's pool tensors alive)."""
+
+    def append(self, args):
+        if not self:
+            super().append(args)
+
+
+def round_summary(rows) -> dict:
+    ms = [r["ms"] for r in rows]
+    sub = [r["subrounds"] for r in rows]
+    return {"rounds": len(rows), "ops_per_s": BATCH * len(ms) / (sum(ms) / 1e3),
+            "round_ms_p50": float(np.percentile(ms, 50)), "round_ms": ms,
+            "subrounds_per_round": float(np.mean(sub)), "subrounds": sub,
+            "ms_per_subround": sum(ms) / max(1, sum(sub)),
+            "k1_per_round": float(np.mean([r["k1"] for r in rows])),
+            "k3_per_round": float(np.mean([r["k3"] for r in rows]))}
+
+
+def copy_tree(core, tree, oracle, mode: str):
+    """A new ``ABTree(mode=mode)`` holding a copy of ``tree``'s state, and a
+    copy of its oracle."""
+    st = tree.stacked
+    out = core.ABTree(tree.cfg, mode=mode)
+    out.stacked = core.TreeState(*(x.clone() for x in st[:-1]),
+                                 stats=type(st.stats)(*(x.clone() for x in st.stats)))
+    out_oracle = core.DictOracle()
+    out_oracle.d = dict(oracle.d)
+    return out, out_oracle
+
+
+def run_occ_path(torch, core, lib, zipf_keys, tree, oracle):
+    """occ mode at full width: the tree path's final tree and a copy of its
+    oracle in ``ABTree(mode="occ")``, OCC_WARMUP + OCC_ROUNDS Zipf(1.0)
+    rounds, then UNIFORM_ROUNDS uniform rounds, every round checked lane
+    for lane; ``check_invariants`` at the end.  The launch counts are zeroed
+    before the occ rounds and read after them.  Then UNIFORM_ROUNDS uniform
+    rounds through the elim tree, for the two modes side by side."""
+    from repro_torch.core.oracle import check_invariants
+
+    occ, occ_oracle = copy_tree(core, tree, oracle, "occ")
+    rng = np.random.default_rng(SEED + 1)
+    lib.reset_counts()
+    t0 = time.perf_counter()
+    warm = timed_rounds(torch, lib, occ, occ_oracle, core, zipf_keys, rng, OCC_WARMUP,
+                        "occ warm-up")
+    zipf = timed_rounds(torch, lib, occ, occ_oracle, core, zipf_keys, rng, OCC_ROUNDS, "occ zipf")
+    uni = timed_rounds(torch, lib, occ, occ_oracle, core, zipf_keys, rng, UNIFORM_ROUNDS,
+                       "occ uniform", uniform=True)
+    launches = launch_counts(lib)
+    occ_s = time.perf_counter() - t0
+    log(f"occ phase: {occ_s:.1f}s, sub-rounds {[r['subrounds'] for r in warm + zipf + uni]}")
+    check_invariants(occ.state, occ.cfg)
+    if occ.items() != occ_oracle.items():
+        raise AssertionError("occ tree contents differ from the oracle")
+    # the elim tree on uniform traffic (its Zipf rounds are the tree path's),
+    # from the same state as the occ tree, in a fresh ABTree as the occ one is
+    elim, elim_oracle = copy_tree(core, tree, oracle, "elim")
+    elim_uni = timed_rounds(torch, lib, elim, elim_oracle, core, zipf_keys,
+                            np.random.default_rng(SEED + 2), UNIFORM_ROUNDS, "elim uniform",
+                            uniform=True)
+    check_invariants(elim.state, elim.cfg)
+    if elim.items() != elim_oracle.items():
+        raise AssertionError("elim tree contents differ from the oracle after the uniform rounds")
+    return {"config": {"from": "the tree path's final tree", "batch": BATCH,
+                       "warmup": OCC_WARMUP, "zipf_rounds": OCC_ROUNDS,
+                       "uniform_rounds": UNIFORM_ROUNDS},
+            "seconds": occ_s, "warmup": round_summary(warm), "occ_zipf": round_summary(zipf),
+            "occ_uniform": round_summary(uni), "elim_uniform": round_summary(elim_uni),
+            "stats": occ.stats(), "launches": launches}
+
+
+class ActionTracer:
+    """A forest tracer that records only the forest's own ``repartition``,
+    ``shard_sweep`` and ``shard_reinsert`` spans; every other span, mark and
+    instant is the no-op tracer's, so the rounds around them run unfenced
+    and are timed as usual."""
+
+    NAMES = ("repartition", "shard_sweep", "shard_reinsert")
+
+    def __init__(self):
+        from repro_torch.obs.tracer import NULL_TRACER, Tracer
+
+        self._null, self._tracer = NULL_TRACER, Tracer()
+
+    def span(self, name: str, **kw):
+        return (self._tracer if name in self.NAMES else self._null).span(name, **kw)
+
+    def __getattr__(self, name):
+        return getattr(self._null, name)
+
+    def actions(self):
+        """(actions, sweeps, re-inserts): each span's notes and seconds."""
+        out = {n: [] for n in self.NAMES}
+        for ev in self._tracer.events:
+            out[ev["name"]].append({**ev["args"], "seconds": ev["dur"] / 1e6})
+        return tuple(out[n] for n in self.NAMES)
+
+
+def forest_run(torch, core, lib, zipf_keys, *, auto: bool, n_prefill: int, record=None):
+    """One forest at the tree path's configuration and traffic on the one
+    card: ``ABForest(n_shards=FOREST_SHARDS, PAPER, key_space=(0,
+    KEY_RANGE), auto_repartition=auto)``, ``n_prefill`` keys prefilled as
+    the tree path prefills, then FOREST_WARMUP + FOREST_ROUNDS mixed
+    rounds, each checked against the oracle, and ``check_forest_invariants``
+    and the contents at the end.  Each repartition action is timed, with
+    its sweeps and re-insertions, from the forest's own tracer spans.  With
+    ``record`` (a dict), the first K1 and K3 launch of the first measured
+    round go into it."""
+    from repro_torch.core import ABForest, check_forest_invariants
+
+    forest = ABForest(n_shards=FOREST_SHARDS, cfg=core.TreeConfig(**TREE_CFG),
+                      key_space=(0, KEY_RANGE), auto_repartition=auto)
+    oracle = core.DictOracle()
+    rng = np.random.default_rng(SEED + 3)
+    name = "forest" if auto else "static forest"
+    forest.tracer = ActionTracer()
+    prefill_s = prefill(forest, oracle, core, rng, n_prefill, KEY_RANGE, name)
+    counters = {n: lib.counter(n) for n in ("descend_probe", "elim_combine")}
+
+    def record_first(r):
+        """Keep the first K1 and K3 launch of round 0 (its search phase)."""
+        if r == 0:
+            for c in counters.values():
+                c.calls = FirstCall()
+        elif r == 1:
+            for n, c in counters.items():
+                record[n], c.calls = c.calls[0], None
+
+    t0 = time.perf_counter()
+    warm = timed_rounds(torch, lib, forest, oracle, core, zipf_keys, rng, FOREST_WARMUP,
+                        f"{name} warm-up")
+    rounds = timed_rounds(torch, lib, forest, oracle, core, zipf_keys, rng, FOREST_ROUNDS,
+                          f"{name} measured", each=None if record is None else record_first)
+    rounds_s = time.perf_counter() - t0
+    actions, sweeps, reinserts = forest.tracer.actions()
+    for a in actions:
+        log(f"{name} repartition: {a}")
+    check_forest_invariants(forest)
+    if forest.items() != oracle.items():
+        raise AssertionError(f"{name}: contents differ from the oracle")
+    log(f"{name}: prefill {prefill_s:.1f}s, rounds {rounds_s:.1f}s, "
+        f"{len(actions)} repartition actions, S = {forest.n_shards}")
+    summary = {"config": {"n_shards": FOREST_SHARDS, **TREE_CFG, "key_space": [0, KEY_RANGE],
+                          "auto_repartition": auto, "prefill_keys": n_prefill, "batch": BATCH,
+                          "warmup": FOREST_WARMUP, "rounds": FOREST_ROUNDS},
+               "prefill_s": prefill_s, "rounds_s": rounds_s, "warmup": round_summary(warm),
+               "measured": round_summary(rounds), "actions": actions, "sweeps": sweeps,
+               "reinserts": reinserts, "sweep_s": sum(x["seconds"] for x in sweeps),
+               "reinsert_s": sum(x["seconds"] for x in reinserts),
+               "n_shards": forest.n_shards, "splits": forest.splits.tolist(),
+               "stats_per_shard": forest.stats_per_shard(), "stats": forest.stats(),
+               "counters": {n: forest.metrics.value(n) for n in (
+                   "hot_shard_events", "repartitions", "boundary_moves", "shard_merges",
+                   "shard_splits")},
+               "live_keys": len(oracle.d)}
+    return summary, forest, oracle
+
+
+def run_forest_path(torch, core, lib, zipf_keys):
+    """The forest phase: ``forest_run`` with ``auto_repartition=True`` at
+    FOREST_PREFILL keys (the load-aware repartitioner at work on the card),
+    then with the static partition at the tree path's 10^6 keys, whose
+    shards all stay (FOREST_SHARDS of them through every round): its first
+    measured K1 and K3 calls are recorded for the replays, and one
+    ``scan_stream`` of cap FOREST_STREAM_CAP over FOREST_STREAM_HALF keys
+    either side of its first split point, which chains shard cursors, must
+    equal ``DictOracle.range``.  The launch counts are zeroed before the
+    first run and read after the scan.  Returns the summary and the
+    recorded calls."""
+    lib.reset_counts()
+    auto, _, _ = forest_run(torch, core, lib, zipf_keys, auto=True, n_prefill=FOREST_PREFILL)
+    recorded = {}
+    static, forest, oracle = forest_run(torch, core, lib, zipf_keys, auto=False,
+                                        n_prefill=KEY_RANGE // 2, record=recorded)
+    if forest.n_shards != FOREST_SHARDS or recorded["descend_probe"][5].shape[0] != FOREST_SHARDS:
+        raise AssertionError(f"static forest: S = {forest.n_shards} at the end")
+    mid = int(forest.splits[0])
+    lo, hi = mid - FOREST_STREAM_HALF, mid + FOREST_STREAM_HALF
+    pages, t0 = forest.stats()["scans"], time.perf_counter()
+    got = list(forest.scan_stream(lo, hi, cap=FOREST_STREAM_CAP))
+    static["scan_stream"] = {"lo": lo, "hi": hi, "cap": FOREST_STREAM_CAP, "pairs": len(got),
+                             "pages": forest.stats()["scans"] - pages,
+                             "wall_ms": (time.perf_counter() - t0) * 1e3}
+    if got != oracle.range(lo, hi):
+        raise AssertionError(f"forest scan_stream over [{lo}, {hi}) differs from the oracle")
+    return {"auto_repartition": auto, "static": static, "launches": launch_counts(lib)}, recorded
+
+
+def run_index_path(torch, core, lib):
+    """The serving indexes sharded four ways, driven without a model:
+    ``PrefixIndex(shards=INDEX_SHARDS)`` and ``SessionIndex(shards=
+    INDEX_SHARDS)`` as ``ServeEngine(index_shards=INDEX_SHARDS)`` builds
+    them, through INDEX_STEPS steps of publish / lookup / evict calls (hot
+    prefixes re-published and evicted, session ids allocated in order and
+    swept in ranges), every call checked against a ``DictOracle``
+    (``IndexAudit``) and both indexes against the oracles at the end."""
+    from types import SimpleNamespace
+
+    from repro_torch.serve.pages import PrefixIndex, SessionIndex, _hash_chain
+
+    n_pages = SERVE_ENGINE["n_pages"]
+    idx = SimpleNamespace(
+        index=PrefixIndex(shards=INDEX_SHARDS),
+        sessions=SessionIndex(shards=INDEX_SHARDS, key_space=(0, 1 << 31),
+                              max_keys_per_shard=max(64, n_pages // INDEX_SHARDS)))
+    audit = IndexAudit(idx, core)
+    rng = np.random.default_rng(SEED + 4)
+    hashes = [_hash_chain(i, (i,)) for i in range(256)]
+    lib.reset_counts()
+    t0 = time.perf_counter()
+    rid, floor = 0, 0
+    for step in range(INDEX_STEPS):
+        pick = (rng.zipf(1.3, 8) % 256).tolist()
+        idx.index.publish_batch([hashes[i] for i in pick], [step * 8 + j for j in range(8)])
+        idx.index.lookup_batch([hashes[i] for i in (rng.zipf(1.3, 8) % 256).tolist()])
+        idx.index.evict_batch([hashes[i] for i in pick[:3]])
+        idx.sessions.publish_batch(list(range(rid, rid + 4)), [10 * r for r in range(rid, rid + 4)])
+        idx.sessions.lookup_batch(rng.integers(max(0, rid - 16), rid + 4, 4).tolist())
+        rid += 4
+        if step % 10 == 9:  # sweep all but the newest sessions
+            idx.sessions.evict_range(floor, rid - 8)
+            floor = rid - 8
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    audit.check(idx)
+    return {"config": {"shards": INDEX_SHARDS, "steps": INDEX_STEPS,
+                       "session_max_keys_per_shard": max(64, n_pages // INDEX_SHARDS)},
+            "wall_s": wall, "calls": dict(audit.calls), "index_s_by_call": dict(audit.seconds_by),
+            "prefix_shards": idx.index.tree.n_shards, "session_shards": idx.sessions.tree.n_shards,
+            "session_splits": idx.sessions.tree.splits.tolist(),
+            "launches": launch_counts(lib)}
 
 
 # ----------------------------------------------------------------------------
@@ -414,7 +735,10 @@ class IndexAudit:
 
     def check(self, eng):
         for name, index in (("prefix", eng.index), ("sessions", eng.sessions)):
-            self.core.check_invariants(index.tree.state, index.tree.cfg)
+            if index.tree.n_shards > 1:
+                self.core.check_forest_invariants(index.tree)
+            else:
+                self.core.check_invariants(index.tree.state, index.tree.cfg)
             if index.tree.items() != self.oracles[name].items():
                 raise AssertionError(f"{name} index contents differ from the oracle")
 
@@ -1119,16 +1443,14 @@ def flash_replays(torch, fa_kernel, fa_ops, fa_ref, recorded):
     return cases, grad_err
 
 
-def leaf_probe_replay(torch, td_kernel, lp_kernel, lp_ops, descend_call):
-    """B5 standalone (no path of the system calls it): the public wrapper
-    over the leaf rows that K1 reached in the tree path's recorded search
-    call, counted as its own run, then the kernel held lane for lane against
-    K1's own probe (where K1 found the key, the same slot and value; else
-    slot -1 and value 0).  Returns the rows, queries, the kernel's output and
-    the wrapper's launch count."""
+def leaf_rows(torch, descend_call):
+    """The leaf rows that K1 reached in a recorded search call, each row's
+    query, and K1's own answers (found, slot, value), flattened over the
+    shards: B5's input at the path's shapes."""
     from types import SimpleNamespace
 
     from repro_torch.core.abtree import _leaf_rows
+    from repro_torch.kernels.tree_descend import kernel as td_kernel
 
     pk, pv, ch, lf, root, q, kw = descend_call
     leaf, found, slot, val = td_kernel.descend_probe_cuda(pk, pv, ch, lf, root, q, **kw)
@@ -1138,13 +1460,22 @@ def leaf_probe_replay(torch, td_kernel, lp_kernel, lp_ops, descend_call):
     rows_g = _leaf_rows(SimpleNamespace(keys=pk, size=lf), leaf).reshape(-1)
     lk = pk.reshape(-1, nb)[rows_g].contiguous()
     lv = pv.reshape(-1, nb)[rows_g].contiguous()
-    lq = q.reshape(-1).contiguous()
+    return lk, lv, q.reshape(-1).contiguous(), found.reshape(-1), slot.reshape(-1), val.reshape(-1)
+
+
+def leaf_probe_replay(torch, lp_kernel, lp_ops, descend_call):
+    """B5 standalone (no path of the system calls it): the public wrapper
+    over the leaf rows that K1 reached in the tree path's recorded search
+    call, counted as its own run, then the kernel held lane for lane against
+    K1's own probe (where K1 found the key, the same slot and value; else
+    slot -1 and value 0).  Returns the rows, queries, the kernel's output and
+    the wrapper's launch count."""
+    lk, lv, lq, found, slot, val = leaf_rows(torch, descend_call)
     probe = lp_kernel.LEAF_PROBE
     probe.launches = 0
     lp_ops.leaf_probe(lk, lv, lq)
     launches = probe.launches
     got = lp_kernel.leaf_probe_cuda(lk, lv, lq)
-    found, slot, val = found.reshape(-1), slot.reshape(-1), val.reshape(-1)
     want_slot = torch.where(found, slot, torch.full_like(slot, -1))
     want_val = torch.where(found, val, torch.zeros_like(val))
     if not (torch.equal(got[0], want_slot) and torch.equal(got[1], want_val)):
@@ -1156,10 +1487,13 @@ def leaf_probe_replay(torch, td_kernel, lp_kernel, lp_ops, descend_call):
 
 
 def kernel_report(torch, mods, libs, summary, recorded, serve_summary, serve_recorded,
-                  per_call, train_summary, train_recorded):
+                  per_call, train_summary, train_recorded, paths, forest_recorded):
     """Replay one main-path call per kernel against its plain version.
     ``libs``: kernel name -> built library; ``per_call``: the kernels one
-    call of B7, K3, K2 and K4 ran (``one_kernel_calls``)."""
+    call of B7, K3, K2 and K4 ran (``one_kernel_calls``); ``paths``: the
+    occ, forest and sharded-index phases' summaries (their launch counts
+    join each row); ``forest_recorded``: the forest's first K1 and K3
+    calls, at S = FOREST_SHARDS, replayed beside the K1 and K3 rows."""
     (td_kernel, td_ref, ec_kernel, ec_ref, rs_kernel, rs_ref, da_kernel, da_ref,
      fa_kernel, fa_ops, fa_ref, lp_kernel, lp_ops, lp_ref) = mods
     rows = []
@@ -1177,6 +1511,7 @@ def kernel_report(torch, mods, libs, summary, recorded, serve_summary, serve_rec
             "launches": summary["launches"][name] if launches is None else launches,
             "serve_launches": serve_summary["launches"].get(name, 0),
             "train_launches": train_summary["launches"].get(name, 0),
+            **{f"{path}_launches": s["launches"].get(name, 0) for path, s in paths.items()},
             "max_abs_err": err, "tolerance": tol, "equal": err == 0.0,
             "ms": k_ms, "kernel_ms": k_ms, "call_ms": time_ms(torch, k_fn, 200),
             "plain_ms": graph_ms(torch, p_fn), "plain_call_ms": time_ms(torch, p_fn, 20),
@@ -1185,7 +1520,14 @@ def kernel_report(torch, mods, libs, summary, recorded, serve_summary, serve_rec
             **(extra or {}),
         })
 
-    # K1 descend_probe: the search phase's call (first of the round)
+    # K1 descend_probe: the search phase's call (first of the round), and
+    # the forest's first search call at S = FOREST_SHARDS
+    fk = forest_recorded["descend_probe"]
+    f_bytes, f_height = descend_bytes(torch, fk[0], *fk[2:6], fk[6]["max_height"])
+    forest_k1 = {"pool": list(fk[0].shape), "queries": list(fk[5].shape), "height": f_height,
+                 **side_replay(torch, f"descend_probe at S = {fk[0].shape[0]}",
+                               lambda: td_kernel.descend_probe_cuda(*fk[:6], **fk[6]),
+                               lambda: td_ref.descend_probe_ref(*fk[:6], **fk[6]), f_bytes)}
     pk, pv, ch, lf, root, q, kw = recorded["descend_probe"][0]
     nbytes, height = descend_bytes(torch, pk, ch, lf, root, q, kw["max_height"])
     entry(
@@ -1196,7 +1538,7 @@ def kernel_report(torch, mods, libs, summary, recorded, serve_summary, serve_rec
         lambda: td_kernel.descend_probe_cuda(pk, pv, ch, lf, root, q, **kw),
         lambda: td_ref.descend_probe_ref(pk, pv, ch, lf, root, q, **kw),
         nbytes, {"pool": list(pk.shape), "queries": list(q.shape)},
-        extra={"height": height},
+        extra={"height": height, "forest": forest_k1},
     )
 
     # K2 frontier_compact: the call with the most valid candidates; one
@@ -1221,7 +1563,16 @@ def kernel_report(torch, mods, libs, summary, recorded, serve_summary, serve_rec
                "large_cap_scan": large["frontier_compact"]},
     )
 
-    # K3 elim_combine: the round's combine
+    # K3 elim_combine: the round's combine, and the forest's first combine
+    # at S = FOREST_SHARDS
+    def combine_bytes(ops):
+        return ops.numel() * (4 + 8 + 1 + 1 + 8 + 1 + 8 + 1 + 8)
+
+    fc = forest_recorded["elim_combine"][:5]
+    forest_k3 = {"ops": list(fc[0].shape),
+                 **side_replay(torch, f"elim_combine at S = {fc[0].shape[0]}",
+                               lambda: ec_kernel.elim_combine_cuda(*fc),
+                               lambda: ec_ref.elim_combine_ref(*fc), combine_bytes(fc[0]))}
     ops, vals, head, p0, v0, _ = recorded["elim_combine"][0]
     entry(
         "elim_combine", "src/repro_torch/csrc/elim_combine.cu",
@@ -1230,9 +1581,9 @@ def kernel_report(torch, mods, libs, summary, recorded, serve_summary, serve_rec
         ec_ref.elim_combine_ref(ops, vals, head, p0, v0),
         lambda: ec_kernel.elim_combine_cuda(ops, vals, head, p0, v0),
         lambda: ec_ref.elim_combine_ref(ops, vals, head, p0, v0),
-        ops.numel() * (4 + 8 + 1 + 1 + 8 + 1 + 8 + 1 + 8),
+        combine_bytes(ops),
         {"ops": list(ops.shape)},
-        extra={"kernels_per_call": per_call["elim_combine"]},
+        extra={"kernels_per_call": per_call["elim_combine"], "forest": forest_k3},
     )
 
     # K4 range_scan: the round's accepted gather (the last call)
@@ -1333,7 +1684,7 @@ def kernel_report(torch, mods, libs, summary, recorded, serve_summary, serve_rec
 
     # B5 leaf_probe, standalone over the tree path's leaf rows
     lk, lv, lq, (p_slot, p_val), probe_launches = leaf_probe_replay(
-        torch, td_kernel, lp_kernel, lp_ops, recorded["descend_probe"][0])
+        torch, lp_kernel, lp_ops, recorded["descend_probe"][0])
     nb = lk.shape[1]
     hit = p_slot >= 0
     compared = torch.where(hit, p_slot + 1, nb).sum()
@@ -1395,9 +1746,17 @@ def main() -> int:
     per_call = one_kernel_calls(torch, da_kernel, ec_kernel, td_kernel, rs_kernel, zipf_keys,
                                 get_config(SERVE_ARCH))
 
-    # 2. the main path at full width
-    summary, recorded = run_main_path(torch, core, lib, zipf_keys)
+    # 2. the main path at full width, then occ mode on its tree, the forest
+    # and the sharded indexes
+    summary, recorded, tree, oracle = run_main_path(torch, core, lib, zipf_keys)
     print(json.dumps({"main_path": summary, "card": smi}), flush=True)
+    occ_summary = run_occ_path(torch, core, lib, zipf_keys, tree, oracle)
+    print(json.dumps({"occ_path": occ_summary, "card": smi}), flush=True)
+    del tree, oracle
+    forest_summary, forest_recorded = run_forest_path(torch, core, lib, zipf_keys)
+    print(json.dumps({"forest_path": forest_summary, "card": smi}), flush=True)
+    index_summary = run_index_path(torch, core, lib)
+    print(json.dumps({"sharded_indexes": index_summary, "card": smi}), flush=True)
 
     # 3. the serving path at full width
     torch.backends.cuda.matmul.allow_tf32 = False  # f32 products in full f32
@@ -1416,7 +1775,8 @@ def main() -> int:
         torch, (td_kernel, td_ref, ec_kernel, ec_ref, rs_kernel, rs_ref, da_kernel, da_ref,
                 fa_kernel, fa_ops, fa_ref, lp_kernel, lp_ops, lp_ref),
         libs, summary, recorded, serve_summary, serve_recorded, per_call, train_summary,
-        train_recorded,
+        train_recorded, {"occ": occ_summary, "forest": forest_summary, "index": index_summary},
+        forest_recorded,
     )
     print(json.dumps({"kernels": rows}), flush=True)
     print(smi, flush=True)

@@ -1,4 +1,5 @@
-"""Core library of the port: the batched Elim-ABtree round engine."""
+"""Core library of the port: the batched OCC-ABtree and Elim-ABtree round
+engine, one tree (``ABTree``) or a key-partitioned forest (``ABForest``)."""
 from repro_torch.core.abtree import (
     ABTree,
     EMPTY,
@@ -13,10 +14,14 @@ from repro_torch.core.abtree import (
     ScanOutput,
     TreeConfig,
     TreeState,
+    range_query,
 )
+from repro_torch.core.forest import ABForest, check_forest_invariants
+from repro_torch.core.rounds import RoundPlan, build_plan
 from repro_torch.core.oracle import DictOracle, check_invariants, tree_contents
 
 __all__ = [
+    "ABForest",
     "ABTree",
     "DictOracle",
     "EMPTY",
@@ -27,10 +32,14 @@ __all__ = [
     "OP_NOP",
     "OP_RANGE",
     "RoundOutput",
+    "RoundPlan",
     "ScanConflictError",
     "ScanOutput",
     "TreeConfig",
     "TreeState",
+    "build_plan",
+    "check_forest_invariants",
     "check_invariants",
+    "range_query",
     "tree_contents",
 ]

@@ -804,12 +804,7 @@ class ABTree(RegistryBackedCounters):
     every kernel wrapper takes its plain version."""
 
     def __init__(self, cfg: TreeConfig = TreeConfig(), mode: str = "elim", *, device=None):
-        if mode == "occ":
-            raise NotImplementedError(
-                "mode='occ' is not ported yet (ROADMAP.md queue A, item 1: "
-                "rounds._occ_round)"
-            )
-        if mode != "elim":
+        if mode not in ("elim", "occ"):
             raise ValueError(f"unknown mode {mode!r}")
         if not 2 <= cfg.a <= cfg.b // 2:
             raise ValueError("(a,b) requires 2 ≤ a ≤ b/2")
@@ -833,7 +828,12 @@ class ABTree(RegistryBackedCounters):
         self._rounds = 0
         self._scans = 0
         self._scan_retries = 0
+        self._scan_active = 0
         self._wave_w = 64  # pad width for structural waves
+        # durability hook: fires after every occ sub-round (each sub-round's
+        # returns causally follow the previous one's, the batched analog of
+        # the paper's per-update flush + fence).
+        self.subround_hook = None
         # optimistic-reader hook: called between a scan's gather and its
         # version validation (tests use it to force the retry paths).
         self.scan_hook = None
@@ -848,6 +848,12 @@ class ABTree(RegistryBackedCounters):
         return TreeState(
             *(x[0] for x in st[:-1]), stats=TreeStats(*(x[0] for x in st.stats))
         )
+
+    def _maybe_split_shards(self):
+        """Shard-overflow policy: the single tree never splits shards."""
+
+    def _maybe_repartition(self):
+        """Load rebalancing is a forest concern; S = 1 has one partition."""
 
     # -- public API -----------------------------------------------------------
 
@@ -881,6 +887,16 @@ class ABTree(RegistryBackedCounters):
 
         return rounds.execute_scan_delete(self, lo, hi, cap=cap, max_retries=max_retries)
 
+    def scan_stream(self, lo, hi, cap: int = 128):
+        """Stream every (key, value) in ``[lo, hi)`` ascending as a
+        generator of successive ``cap``-bounded scan rounds, each resuming
+        past the last emitted key.  Each round is validated on its own;
+        entries of different rounds may straddle interleaved update rounds,
+        as with any cursor over a concurrent map."""
+        from repro_torch.core import rounds
+
+        return rounds.execute_scan_stream(self, lo, hi, cap)
+
     def find(self, key) -> Optional[int]:
         out = self.apply_round([OP_FIND], [key])
         return int(out.results[0]) if bool(out.found[0]) else None
@@ -903,6 +919,12 @@ class ABTree(RegistryBackedCounters):
         live = k != EMPTY
         order = np.argsort(k[live], kind="stable")
         return dict(zip(k[live][order].tolist(), v[live][order].tolist()))
+
+    def take_dirty(self) -> np.ndarray:
+        """Node ids dirtied since the last durable commit (then reset)."""
+        d = np.nonzero(self.stacked.dirty[0].cpu().numpy())[0].astype(np.int32)
+        self.stacked = self.stacked._replace(dirty=torch.zeros_like(self.stacked.dirty))
+        return d
 
     def stats(self) -> dict:
         """Device phase counters plus the engine's host-side round/scan
@@ -928,3 +950,49 @@ class ABTree(RegistryBackedCounters):
     def _grow(self, new_cap: int):
         self.stacked = grow_pool(self.stacked, new_cap - self.cfg.capacity)
         self.cfg = self.cfg._replace(capacity=new_cap)
+
+
+# ----------------------------------------------------------------------------
+# Range queries (paper §3): an optimistic double collect over the touched
+# subtree: capture versions, walk, re-validate.
+# ----------------------------------------------------------------------------
+
+
+def range_query(tree: "ABTree", lo: int, hi: int, max_retries: int = 8):
+    """All (k, v) with lo <= k < hi, by a host walk of ``tree.state``
+    validated against node versions (the paper's optimistic-reader
+    discipline; a retry guards against rounds that interleave from other
+    threads sharing the state).  ``ScanConflictError`` after
+    ``max_retries`` failed validations."""
+    cfg = tree.cfg
+    for _ in range(max_retries):
+        s = tree.state
+        ver_before = s.ver.cpu().numpy()
+        keys = s.keys.cpu().numpy()
+        vals = s.vals.cpu().numpy()
+        children = s.children.cpu().numpy()
+        is_leaf = s.is_leaf.cpu().numpy()
+        size = s.size.cpu().numpy()
+        out = []
+        touched = []
+        stack = [int(s.root)]
+        while stack:
+            nid = stack.pop()
+            touched.append(nid)
+            if is_leaf[nid]:
+                row = keys[nid]
+                # bounds clamped into int64 (EMPTY is never a key)
+                hit = (row != EMPTY) & (row >= max(lo, KEY_MIN)) & (row < min(hi, EMPTY))
+                out.extend(zip(row[hit].tolist(), vals[nid][hit].tolist()))
+                continue
+            sz = int(size[nid])
+            routers = keys[nid, : sz - 1].tolist()
+            for j in range(sz):
+                clo = KEY_MIN if j == 0 else routers[j - 1]
+                chi = EMPTY if j == sz - 1 else routers[j]
+                if chi > lo and clo < hi:  # the child's range meets [lo, hi)
+                    stack.append(int(children[nid, j]))
+        ver_after = tree.state.ver.cpu().numpy()
+        if np.array_equal(ver_before[touched], ver_after[touched]):
+            return sorted(out)
+    raise ScanConflictError("range_query: version validation failed repeatedly")

@@ -1,5 +1,5 @@
 """Round engine: one (S, W) pipeline behind every round (port of
-``src/repro/core/rounds.py``, elim mode).
+``src/repro/core/rounds.py``).
 
 A *round* is a batch of mutually concurrent dictionary operations.  The
 public ``ABTree`` entry points build a :class:`RoundPlan` (lane
@@ -26,14 +26,24 @@ The JAX engine wrote each phase per shard and ``jax.vmap``-ed it over the
 stacked state.  Here every phase function takes the stacked ``(S, ...)``
 state and ``(S, W)`` lane blocks directly (the JAX ``_v_*`` wrappers and
 the per-shard ``_phase_*`` kernels are one function each), so ``ABTree``
-is S = 1 and the forest can come later without rewriting the phases.
+is S = 1 and ``ABForest`` (``core/forest.py``) runs the same phases on its
+(S, ...) stack.
+
+Lane classes: in ``elim`` mode a shard's point lanes run one combine; in
+``occ`` mode duplicate keys force sub-rounds (duplicate rank r executes in
+sub-round r, re-packed to the live lanes only).  Range lanes are served by
+the scan phase; cross-shard lanes split into per-shard sub-lanes and
+stitch back in key order.
 
 Holder protocol (duck-typed, as in the JAX engine): ``stacked``, ``cfg``,
 ``mode``, ``n_shards``, ``device``, ``_splits`` / ``_bounds``, ``_wave_w``,
-``_scan_frontier``, ``_ensure_capacity(n)``, ``scan_hook``, ``_rounds`` /
-``_scans`` / ``_scan_retries``, ``metrics``, ``tracer``, ``recorder``.  The
-JAX holder's forest hooks (shard-load notes, repartition, shard splits)
-come with the forest.
+``_scan_frontier``, ``_ensure_capacity(n)``, ``scan_hook`` /
+``subround_hook``, ``_rounds`` / ``_scans`` / ``_scan_retries``,
+``_scan_active`` (in-flight scans defer shard splits),
+``_maybe_split_shards()`` / ``_maybe_repartition()`` (forest lifecycle;
+no-ops on ``ABTree``), ``metrics``, ``tracer``, ``recorder``, and the
+optional router callbacks ``_note_shard_load(counts)`` /
+``_note_key_sample(keys)``.
 
 Host loops (``_split_cascade``, ``_fix_underfull_all``) copy ``size``,
 ``parent`` and ``alloc`` to the host every wave, exactly as the JAX engine
@@ -140,6 +150,22 @@ def _elim_note(ops_sw, ks, arrival, res) -> dict:
                 }
             )
     return {"eliminated": nel.astype(np.int64).tolist(), "segments": segments}
+
+
+def _note_load(holder, counts):
+    """Feed per-shard routed-lane counts to the holder's hot-shard detector
+    (a forest concern; ``ABTree``'s is a no-op)."""
+    note = getattr(holder, "_note_shard_load", None)
+    if note is not None:
+        note(counts)
+
+
+def _note_keys(holder, keys):
+    """Feed routed lane keys to the holder's key-sample reservoir (the
+    forest's load-weighted split points; ``ABTree`` has none)."""
+    note = getattr(holder, "_note_key_sample", None)
+    if note is not None:
+        note(keys)
 
 
 def _note_pack(holder, tr_span, width: int, n_real: int):
@@ -333,6 +359,23 @@ def _independent_by_parent_np(parent_row: np.ndarray, ids: np.ndarray) -> np.nda
     return np.asarray(keep, np.int32)
 
 
+def _duplicate_ranks(ops_np: np.ndarray, keys_np: np.ndarray) -> np.ndarray:
+    """Per-lane duplicate rank of each key (OP_NOP lanes rank 0): rank r
+    executes in occ sub-round r.  A stable sort groups equal keys in
+    arrival order, so a lane's rank is its offset from its key run's
+    first occurrence."""
+    rank = np.zeros(ops_np.shape[0], np.int32)
+    idx = np.nonzero(ops_np != OP_NOP)[0]
+    if idx.size == 0:
+        return rank
+    k = keys_np[idx]
+    order = np.argsort(k, kind="stable")
+    ks = k[order]
+    run_start = np.searchsorted(ks, ks, side="left")
+    rank[idx[order]] = (np.arange(ks.size) - run_start).astype(np.int32)
+    return rank
+
+
 # ----------------------------------------------------------------------------
 # Phase: scan (optimistic reader; linearizes before the round's writes)
 # ----------------------------------------------------------------------------
@@ -416,6 +459,9 @@ def scan_lanes(holder, lo_np, hi_np, cap, *, n_scan_ops, max_retries: int = 8):
         if n_sub:
             _note_pack(holder, pack_sp, _pow2(n_sub), n_sub)
     tr.shard_marks("scan.sublanes", n_per)
+    _note_load(holder, n_per)
+    if live.any():
+        _note_keys(holder, lo_np[live])
     if m is not None:
         for s in np.nonzero(n_per)[0]:
             m.inc_shard("scan_sublanes", int(n_per[s]), int(s))
@@ -481,67 +527,74 @@ def run_scan_phase(holder, sub_sid, sub_lo, sub_hi, cap, max_retries: int = 8, g
     retried = 0
     tr = _tr(holder)
     m = _metrics(holder)
-    with tr.span("scan", lanes=n_sub, shards=n_s) as scan_sp:
-        for attempt in range(max_retries):
-            w = _pow2(cur.size)
-            sid_w = np.zeros(w, np.int64)
-            lo_w = np.full(w, EMPTY, np.int64)
-            hi_w = np.full(w, EMPTY, np.int64)
-            sid_w[: cur.size] = sub_sid[cur]
-            lo_w[: cur.size] = sub_lo[cur]
-            hi_w[: cur.size] = sub_hi[cur]
-            snap = holder.stacked
-            with tr.span("scan.gather", attempt=attempt, width=w) as sp:
-                sid_t = torch.as_tensor(sid_w, device=dev)
-                lo_t = torch.as_tensor(lo_w, device=dev)
-                hi_t = torch.as_tensor(hi_w, device=dev)
-                out, touched = gather_until_frontier_fits(
-                    holder,
-                    lambda fc: _phase_scan_flat(snap, holder.cfg, sid_t, lo_t, hi_t, fc, cap),
-                )
-                sp.fence((out, touched))
-            if holder.scan_hook is not None:
-                holder.scan_hook()
-            with tr.span("scan.validate", attempt=attempt):
-                snap_ver = _np(snap.ver)
-                live_ver = _np(holder.stacked.ver)
-                touched_np = _np(touched)  # (L, w, F) per-lane ids
-                shard_ok = np.zeros(n_s, bool)
-                for s in np.nonzero(pending)[0]:
-                    ids = np.unique(touched_np[:, sid_w == s, :])
-                    shard_ok[s] = np.array_equal(snap_ver[s][ids], live_ver[s][ids])
-                accept = np.zeros(n_s, bool)
-                for g in np.unique(groups[pending]):
-                    members = pending & (groups == g)
-                    if shard_ok[members].all():
-                        accept |= members
-                    else:  # whole component re-gathers next attempt
-                        retried += int(n_per_shard[members].sum())
-                        if m is not None:
-                            for s in np.nonzero(members)[0]:
-                                m.inc_shard("scan_retries", int(n_per_shard[s]), int(s))
-                        tr.shard_marks(
-                            "scan.retry", np.where(members, n_per_shard, 0), attempt=attempt
-                        )
-            if accept.any():
-                rows = np.nonzero(accept[sub_sid[cur]])[0]
-                buf_k[cur[rows]] = _np(out.keys)[rows]
-                buf_v[cur[rows]] = _np(out.vals)[rows]
-                buf_c[cur[rows]] = _np(out.count)[rows]
-                buf_t[cur[rows]] = _np(out.truncated)[rows]
-                pending &= ~accept
-            if not pending.any():
-                holder._scan_retries += retried
-                scan_sp.note(retries=retried, attempts=attempt + 1)
-                rec = _rec(holder)
-                if rec.enabled:
-                    rec.note_scan_phase(retries=retried, attempts=attempt + 1)
-                return buf_k, buf_v, buf_c, buf_t
-            cur = cur[pending[sub_sid[cur]]]
-        raise ScanConflictError(
-            f"scan phase: version validation failed {max_retries} "
-            f"times on shards {np.nonzero(pending)[0].tolist()}"
-        )
+    # a scan_hook writer may push a shard past max_keys_per_shard: the split
+    # (a restack to S + 1 shards) must not fire under this loop's lane
+    # routing, so it waits for the next round boundary.
+    holder._scan_active += 1
+    try:
+        with tr.span("scan", lanes=n_sub, shards=n_s) as scan_sp:
+            for attempt in range(max_retries):
+                w = _pow2(cur.size)
+                sid_w = np.zeros(w, np.int64)
+                lo_w = np.full(w, EMPTY, np.int64)
+                hi_w = np.full(w, EMPTY, np.int64)
+                sid_w[: cur.size] = sub_sid[cur]
+                lo_w[: cur.size] = sub_lo[cur]
+                hi_w[: cur.size] = sub_hi[cur]
+                snap = holder.stacked
+                with tr.span("scan.gather", attempt=attempt, width=w) as sp:
+                    sid_t = torch.as_tensor(sid_w, device=dev)
+                    lo_t = torch.as_tensor(lo_w, device=dev)
+                    hi_t = torch.as_tensor(hi_w, device=dev)
+                    out, touched = gather_until_frontier_fits(
+                        holder,
+                        lambda fc: _phase_scan_flat(snap, holder.cfg, sid_t, lo_t, hi_t, fc, cap),
+                    )
+                    sp.fence((out, touched))
+                if holder.scan_hook is not None:
+                    holder.scan_hook()
+                with tr.span("scan.validate", attempt=attempt):
+                    snap_ver = _np(snap.ver)
+                    live_ver = _np(holder.stacked.ver)
+                    touched_np = _np(touched)  # (L, w, F) per-lane ids
+                    shard_ok = np.zeros(n_s, bool)
+                    for s in np.nonzero(pending)[0]:
+                        ids = np.unique(touched_np[:, sid_w == s, :])
+                        shard_ok[s] = np.array_equal(snap_ver[s][ids], live_ver[s][ids])
+                    accept = np.zeros(n_s, bool)
+                    for g in np.unique(groups[pending]):
+                        members = pending & (groups == g)
+                        if shard_ok[members].all():
+                            accept |= members
+                        else:  # whole component re-gathers next attempt
+                            retried += int(n_per_shard[members].sum())
+                            if m is not None:
+                                for s in np.nonzero(members)[0]:
+                                    m.inc_shard("scan_retries", int(n_per_shard[s]), int(s))
+                            tr.shard_marks(
+                                "scan.retry", np.where(members, n_per_shard, 0), attempt=attempt
+                            )
+                if accept.any():
+                    rows = np.nonzero(accept[sub_sid[cur]])[0]
+                    buf_k[cur[rows]] = _np(out.keys)[rows]
+                    buf_v[cur[rows]] = _np(out.vals)[rows]
+                    buf_c[cur[rows]] = _np(out.count)[rows]
+                    buf_t[cur[rows]] = _np(out.truncated)[rows]
+                    pending &= ~accept
+                if not pending.any():
+                    holder._scan_retries += retried
+                    scan_sp.note(retries=retried, attempts=attempt + 1)
+                    rec = _rec(holder)
+                    if rec.enabled:
+                        rec.note_scan_phase(retries=retried, attempts=attempt + 1)
+                    return buf_k, buf_v, buf_c, buf_t
+                cur = cur[pending[sub_sid[cur]]]
+            raise ScanConflictError(
+                f"scan phase: version validation failed {max_retries} "
+                f"times on shards {np.nonzero(pending)[0].tolist()}"
+            )
+    finally:
+        holder._scan_active -= 1
 
 
 def execute_scan(holder, lo, hi, cap: int = 128, max_retries: int = 8) -> ScanOutput:
@@ -567,10 +620,41 @@ def execute_scan(holder, lo, hi, cap: int = 128, max_retries: int = 8) -> ScanOu
             scan_cap=cap,
             fused="scan",
         )
+    # scan rounds never split shards (splits wait for the next update
+    # round), but load rebalancing may act: read skew is what the hot-shard
+    # window sees on scan traffic.
+    holder._maybe_repartition()
     return ScanOutput(
         keys=torch.from_numpy(k_), vals=torch.from_numpy(v_),
         count=torch.from_numpy(c_), truncated=torch.from_numpy(t_),
     )
+
+
+def execute_scan_stream(holder, lo, hi, cap: int):
+    """Validate eagerly (a generator body would not run until the first
+    ``next``), then stream ``[lo, hi)`` as cursor-chained pages."""
+    if cap <= 0:
+        raise ValueError(f"scan_stream: cap must be positive, got {cap}")
+    return scan_stream_pages(holder, int(lo), int(hi), cap)
+
+
+def scan_stream_pages(holder, cur: int, hi: int, cap: int):
+    """Stream every (key, value) in ``[cur, hi)`` ascending by chaining
+    per-shard cursors: each page queries only the shard holding the cursor,
+    so a long cross-shard scan stays bounded at ``cap`` entries (and one
+    shard's gather) a round."""
+    while cur < hi:
+        s = int(np.searchsorted(holder._splits, cur, side="right"))
+        s_hi = min(hi, holder._bounds[s + 1])
+        out = holder.scan_round([cur], [s_hi], cap=cap)
+        n = int(out.count[0])
+        ks = out.keys[0, :n].tolist()
+        vs = out.vals[0, :n].tolist()
+        yield from zip(ks, vs)
+        if bool(out.truncated[0]):
+            cur = ks[-1] + 1
+        else:
+            cur = s_hi  # shard exhausted: jump to the next shard's range
 
 
 def execute_scan_delete(holder, lo, hi, cap: int = 128, max_retries: int = 8) -> ScanOutput:
@@ -609,6 +693,7 @@ def execute_scan_delete(holder, lo, hi, cap: int = 128, max_retries: int = 8) ->
                 keys_sw[shard_sorted, slot_sorted] = del_keys[order]
                 _note_pack(holder, pack_sp, n_shards * w, int(del_keys.size))
             tr.shard_marks("point_lanes", counts)
+            _note_load(holder, counts)
             if reg is not None:
                 reg.inc("point_lanes", int(del_keys.size))
                 for s in np.nonzero(counts)[0]:
@@ -651,6 +736,7 @@ def execute_scan_delete(holder, lo, hi, cap: int = 128, max_retries: int = 8) ->
                 fused="scan_delete",
             )
         holder._rounds += 1
+        holder._maybe_split_shards()
     return ScanOutput(
         keys=torch.from_numpy(k_), vals=torch.from_numpy(v_),
         count=torch.from_numpy(c_), truncated=torch.from_numpy(t_),
@@ -663,11 +749,11 @@ def execute_scan_delete(holder, lo, hi, cap: int = 128, max_retries: int = 8) ->
 
 
 def run_point_phases(holder, ops_sw, keys_sw, vals_sw):
-    """Execute the point-op pipeline on one packed ``(S, W)`` lane block
-    (free of OP_RANGE).  Only elim mode is ported."""
-    if holder.mode != "elim":
-        raise NotImplementedError("occ rounds are not ported yet (ROADMAP.md queue A, item 1)")
-    return _combine_apply(holder, ops_sw, keys_sw, vals_sw)
+    """Execute the point-op pipeline in the holder's mode on one packed
+    ``(S, W)`` lane block (free of OP_RANGE)."""
+    if holder.mode == "elim":
+        return _combine_apply(holder, ops_sw, keys_sw, vals_sw)
+    return _occ_round(holder, ops_sw, keys_sw, vals_sw)
 
 
 def _combine_apply(holder, ops_sw, keys_sw, vals_sw):
@@ -696,6 +782,75 @@ def _combine_apply(holder, ops_sw, keys_sw, vals_sw):
         waves, shrinks = _fix_underfull_all(holder)
         sp.note(waves=waves, shrinks=shrinks)
     return results, found
+
+
+def _occ_round(holder, ops_sw, keys_sw, vals_sw):
+    """OCC baseline: per-shard duplicate-rank sub-rounds over all shards at
+    once.  A shard whose own rank budget is exhausted runs no lanes in the
+    tail sub-rounds: they are not sub-rounds it executes, so its
+    ``subrounds`` counter stays put.  Each sub-round re-packs only its live
+    lanes (the rank-r duplicates) into a block of ``pow2(max per-shard live
+    count)`` lanes, so tail sub-rounds run at width 8 and satisfied lanes
+    never re-enter the search.  Every sub-round runs the elim pipeline
+    (``_combine_apply``) on its block, in which all keys of a shard are
+    distinct.  ``holder.subround_hook`` fires after every sub-round (the
+    durable layer's per-update flush).  Returns host tensors."""
+    on = _np(ops_sw)
+    kn = _np(keys_sw)
+    vn = _np(vals_sw)
+    dev = holder.device
+    n_s, w = on.shape
+    rank = np.stack([_duplicate_ranks(on[s], kn[s]) for s in range(n_s)])
+    # per-shard budget: rank r of a real op executes in sub-round r, so
+    # shard s is live while r <= max(rank[s]).
+    live = on != OP_NOP  # (S, w)
+    shard_max = np.where(live.any(axis=1), np.where(live, rank, 0).max(axis=1), -1)
+    n_sub = int(rank.max()) + 1
+    results = np.full((n_s, w), NOTFOUND, np.int64)
+    found = np.zeros((n_s, w), bool)
+    tr = _tr(holder)
+    reg = _metrics(holder)
+    for r in range(n_sub):
+        active = shard_max >= r  # (S,) shards that execute sub-round r
+        m = (rank == r) & live  # (S, w) this sub-round's live lanes
+        w_r = _pow2(int(m.sum(axis=1).max()))
+        s_idx, pos = np.nonzero(m)  # row-major: s_idx sorted
+        starts = np.searchsorted(s_idx, np.arange(n_s))
+        slot = np.arange(s_idx.size) - starts[s_idx]
+        sub_ops = np.full((n_s, w_r), OP_NOP, np.int32)
+        sub_keys = np.zeros((n_s, w_r), np.int64)
+        sub_vals = np.zeros((n_s, w_r), np.int64)
+        sub_ops[s_idx, slot] = on[s_idx, pos]
+        sub_keys[s_idx, slot] = kn[s_idx, pos]
+        sub_vals[s_idx, slot] = vn[s_idx, pos]
+        with tr.span("occ_subround", subround=r, active=int(active.sum()), width=w_r) as sp:
+            if reg is not None:
+                reg.set_gauge("router_pack_width", w_r)
+                reg.set_gauge("pad_waste_frac", (n_s * w_r - int(s_idx.size)) / (n_s * w_r))
+            sp.note(width=w_r, real=int(s_idx.size))
+            sub_res, sub_found = _combine_apply(
+                holder,
+                torch.as_tensor(sub_ops, device=dev),
+                torch.as_tensor(sub_keys, device=dev),
+                torch.as_tensor(sub_vals, device=dev),
+            )
+        results[s_idx, pos] = _np(sub_res)[s_idx, slot]
+        found[s_idx, pos] = _np(sub_found)[s_idx, slot]
+        if reg is not None:
+            reg.inc("occ_subrounds", int(active.sum()))
+        st = holder.stacked
+        holder.stacked = st._replace(stats=st.stats._replace(
+            subrounds=st.stats.subrounds + torch.as_tensor(active, dtype=torch.int64, device=dev)
+        ))
+        if holder.subround_hook is not None:
+            holder.subround_hook()
+    rec = _rec(holder)
+    if rec.enabled:
+        rec.note_occ(
+            subrounds=n_sub,
+            active_per_subround=[int((shard_max >= r).sum()) for r in range(n_sub)],
+        )
+    return torch.from_numpy(results), torch.from_numpy(found)
 
 
 def _drain_deferred(holder, ks, final_vals, arrival, deferred):
@@ -936,6 +1091,8 @@ def execute_plan(holder, plan: RoundPlan) -> RoundOutput:
                 slot[order] = slot_sorted
                 _note_pack(holder, pack_sp, n_shards * w, int(pl.size))
             tr.shard_marks("point_lanes", counts)
+            _note_load(holder, counts)
+            _note_keys(holder, keys_np[pl])
             if reg is not None:
                 reg.inc("point_lanes", int(pl.size))
                 for s in np.nonzero(counts)[0]:
@@ -976,4 +1133,5 @@ def execute_plan(holder, plan: RoundPlan) -> RoundOutput:
             found=torch.from_numpy(found),
             scan=scan_out,
         )
+        holder._maybe_split_shards()
     return out

@@ -1,5 +1,6 @@
-"""Launcher of the leaf-probe CUDA kernel (``csrc/leaf_probe.cu``): one
-thread per leaf row, first-match compare, int32 or int64 keys and values."""
+"""Launcher of the leaf-probe CUDA kernel (``csrc/leaf_probe.cu``): a group
+of lanes a leaf row (the power of two at or above min(b, 32)), a ballot for
+the first match, int32 or int64 keys and values; one launch a call."""
 from __future__ import annotations
 
 import torch

@@ -77,6 +77,7 @@ class ServeEngine:
         s_max: int = 512,
         n_pages: int = 1024,
         index_mode: str = "elim",
+        index_shards: int = 1,
         pipelined: bool = False,
         seed: int = 0,
         device=None,
@@ -84,8 +85,9 @@ class ServeEngine:
     ):
         """``params`` (a param tree of fp32 tensors, e.g. carried from the
         JAX package by ``repro_torch.interop``) replaces the initialization
-        from ``seed``.  The JAX engine's sharded and durable index knobs
-        come with the forest and durability."""
+        from ``seed``.  ``index_shards > 1`` partitions both indexes' key
+        spaces into an ``ABForest``.  The JAX engine's durable index knobs
+        come with durability."""
         if device is None:
             if not torch.cuda.is_available():
                 raise RuntimeError(
@@ -105,8 +107,17 @@ class ServeEngine:
         # traffic at qwen2-0.5b's full width)
         self.params = backbone.compute_params(params, cfg)
         self.kv = PagedKVCache(n_pages)
-        self.index = PrefixIndex(mode=index_mode, device=self.device)
-        self.sessions = SessionIndex(mode=index_mode, device=self.device)
+        # index_shards > 1: prefix hashes are uniform over the 63-bit
+        # domain, so static even splits suffice; session ids are monotone,
+        # so static splits alone would route every live id to one shard:
+        # max_keys_per_shard makes the forest re-partition the live id
+        # range (live sessions are bounded by the page pool).
+        self.index = PrefixIndex(mode=index_mode, shards=index_shards, device=self.device)
+        self.sessions = SessionIndex(
+            mode=index_mode, shards=index_shards, key_space=(0, 1 << 31),
+            max_keys_per_shard=None if index_shards == 1 else max(64, n_pages // index_shards),
+            device=self.device,
+        )
         # engine-level telemetry: tick latency + scheduler counters live in
         # the engine's own registry; the index holders keep theirs.
         self.metrics = MetricsRegistry()

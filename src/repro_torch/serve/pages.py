@@ -11,14 +11,14 @@ holds the page pool.  Two index workloads hit the tree:
   * **session index**: request/session id → page-table id, constant churn
     at request granularity.
 
-Both run as batched rounds of the port's ``ABTree`` (one tree, elim mode),
-so every lookup, publish and evict round runs the ``descend_probe`` and
+Both run as batched rounds of the port's ``ABTree`` (or, with
+``shards > 1``, its key-partitioned ``ABForest``), in elim or occ mode, so
+every lookup, publish and evict round runs the ``descend_probe`` and
 ``elim_combine`` kernels, and every session sweep the scan kernels
 (``frontier_compact``, ``range_scan``) before its delete round.
 
-Not ported yet, each raising ``NotImplementedError`` that names its roadmap
-item: ``mode="occ"`` (queue A, item 1), ``shards > 1`` (the forest, item 3)
-and ``durable_dir`` / ``faults`` (durability, item 4).
+Not ported yet: ``durable_dir`` / ``faults`` raise ``NotImplementedError``
+naming their roadmap item (queue A, item 4: durability).
 """
 from __future__ import annotations
 
@@ -28,6 +28,7 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 
 from repro_torch.core.abtree import ABTree, OP_DELETE, OP_FIND, OP_INSERT, TreeConfig
+from repro_torch.core.forest import ABForest
 
 PAGE = 256  # tokens per KV page
 
@@ -95,11 +96,17 @@ def _not_ported(knob: str, item: int, what: str) -> NotImplementedError:
 class PrefixIndex:
     """Prefix-block hash → page id, on the port's Elim-ABtree.
 
+    ``shards > 1`` backs the index with a key-partitioned ``ABForest``:
+    every batched round routes through the forest's per-shard pipeline, so
+    hot-prefix churn on one key range stops contending with the rest of the
+    index.  ``key_space`` seeds the split points (default: the full 63-bit
+    hash domain; session indexes pass their id range instead);
+    ``max_keys_per_shard`` is the forest's overflow-split threshold.
+
     ``device`` defaults to ``"cuda"`` (the tree raises without a card);
-    tests pass ``device="cpu"``.  The JAX index's forest (``shards``) and
-    durability (``durable_dir``, ``faults``) are refused until their
-    roadmap items land; the knobs that only they read (key space, group
-    commit, snapshots) come with them."""
+    tests pass ``device="cpu"``.  The JAX index's durability
+    (``durable_dir``, ``faults``) is refused until its roadmap item lands;
+    the knobs that only it reads (group commit, snapshots) come with it."""
 
     def __init__(
         self,
@@ -107,18 +114,23 @@ class PrefixIndex:
         capacity: int = 1 << 14,
         *,
         shards: int = 1,
+        key_space: Optional[Tuple[int, int]] = None,
+        max_keys_per_shard: Optional[int] = None,
         durable_dir: Optional[str] = None,
         faults=None,
         device=None,
     ):
-        if mode == "occ":
-            raise _not_ported("mode='occ'", 1, "rounds._occ_round")
         if durable_dir is not None or faults is not None:
             raise _not_ported("a durable index", 4, "core/durable.py and core/faults.py")
-        if shards > 1:
-            raise _not_ported("a sharded index", 3, "core/forest.py")
         cfg = TreeConfig(capacity=capacity, b=8, a=2)
-        self.tree = ABTree(cfg, mode=mode, device=device)
+        if shards > 1:
+            self.tree = ABForest(
+                n_shards=shards, cfg=cfg, mode=mode,
+                key_space=key_space if key_space is not None else (0, 1 << 63),
+                max_keys_per_shard=max_keys_per_shard, device=device,
+            )
+        else:
+            self.tree = ABTree(cfg, mode=mode, device=device)
 
     def lookup_batch(self, hashes: List[int]) -> List[Optional[int]]:
         if not hashes:
@@ -151,8 +163,11 @@ class SessionIndex(PrefixIndex):
     low range of the key space; eviction is therefore a *range* operation:
     ``evict_range`` collects AND removes every live session id in
     ``[lo, hi)`` with ONE fused scan+delete round per chunk
-    (``ABTree.scan_delete_round``: the round linearizes the scan before the
-    round's deletes)."""
+    (``scan_delete_round``: the round linearizes the scan before the
+    round's deletes).  With ``shards > 1`` it is still one fused round per
+    chunk when ``[lo, hi)`` straddles shard boundaries; since ids are
+    monotone, pair ``key_space`` with ``max_keys_per_shard`` so the forest
+    re-partitions the live id range."""
 
     def __init__(self, mode: str = "elim", capacity: int = 1 << 12, **kw):
         super().__init__(mode=mode, capacity=capacity, **kw)

@@ -9,7 +9,7 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
-from repro_torch.core import ABTree, TreeConfig  # noqa: E402
+from repro_torch.core import ABForest, ABTree, TreeConfig  # noqa: E402
 from repro_torch.kernels import _lib  # noqa: E402
 from repro_torch.kernels.decode_attention import kernel as da_kernel, ops as da_ops, ref as da_ref  # noqa: E402
 from repro_torch.kernels.elim_combine import kernel as ec_kernel, ops as ec_ops, ref as ec_ref  # noqa: E402
@@ -35,7 +35,7 @@ def _imported_roots(path: Path):
 
 def test_port_files_found():
     names = {p.name for p in PORT_FILES}
-    assert {"abtree.py", "rounds.py", "elimination.py", "chip_smoke.py", "_lib.py",
+    assert {"abtree.py", "rounds.py", "forest.py", "elimination.py", "chip_smoke.py", "_lib.py",
             "engine.py", "pages.py", "backbone.py", "attention.py", "trainer.py", "step.py",
             "adamw.py", "manager.py", "pipeline.py", "tree_kernel_ab.py"} <= names
 
@@ -52,9 +52,10 @@ def test_tree_without_device_raises_on_a_host_without_cuda(monkeypatch):
         ABTree(TreeConfig(capacity=64, b=8, a=2, max_height=8))
 
 
-def test_occ_mode_names_the_roadmap_item():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ABTree(TreeConfig(capacity=64, b=8, a=2, max_height=8), mode="occ", device="cpu")
+def test_forest_without_device_raises_on_a_host_without_cuda(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ABForest(2, TreeConfig(capacity=64, b=8, a=2, max_height=8))
 
 
 class _Reached(Exception):

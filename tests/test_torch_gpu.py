@@ -314,7 +314,8 @@ def test_elim_combine_on_two_streams_at_once(cuda):
 def one_call_kernels():
     """The device kernels of one B7 call (the serving shape), one K3, K2
     and K4 call (the tree path's shapes: K2 1,024 x 96 -> 8, K4 1,024 x 88
-    at cap 128) and one K4 call in block mode (2 x 3,000 at cap 4,096),
+    at cap 128), one K4 call in block mode (2 x 3,000 at cap 4,096) and one
+    B5 call (1,024 rows of 11),
     keyed by each call's first kernel name, counted in this file's only
     ``torch.profiler`` session: a short second session in one process has
     come back with no device events at all.  Each call runs once before the
@@ -336,12 +337,14 @@ def one_call_kernels():
     lo = torch.randint(0, 2000, (1024,), generator=gen).to(cuda)
     hi = lo + 64
     bk = torch.randint(0, 2000, (2, 3000), generator=gen).to(cuda)
+    rows = ck[:, :11].contiguous()
     calls = {
         "decode_cluster_kernel": lambda: da_kernel.decode_attention_cuda(q, k, v, 543, 0.125),
         "elim_combine_kernel": lambda: ec_kernel.elim_combine_cuda(*combine),
         "compact_warp_rows": lambda: td_kernel.frontier_compact_cuda(cand, cvalid, 8, scratch=5),
         "range_scan_warp_rows": lambda: rs_kernel.range_scan_cuda(ck, ck, lo, hi, cap=128),
         "range_scan_sort_runs": lambda: rs_kernel.range_scan_cuda(bk, bk, lo[:2], hi[:2], cap=4096),
+        "leaf_probe_groups": lambda: lp_kernel.leaf_probe_cuda(rows, rows, lo),
     }
     for fn in calls.values():
         fn()
@@ -376,7 +379,7 @@ def test_scan_kernels_are_one_kernel_a_call(cuda, one_call_kernels, name):
 
 @pytest.mark.parametrize("name", ["compact_warp_rows", "elim_combine_kernel",
                                   "range_scan_warp_rows", "range_scan_sort_runs",
-                                  "decode_cluster_kernel"])
+                                  "decode_cluster_kernel", "leaf_probe_groups"])
 def test_launch_counters_count_the_kernels_a_call_ran(cuda, one_call_kernels, name):
     """A call adds to its launch counter the number of kernels it ran on the
     card: one, but two in K4's block mode (sort the runs, then rank)."""
@@ -652,19 +655,28 @@ def test_flash_attention_limits_named(cuda):
         fa_kernel.flash_attention_cuda(q, k, k, causal=True, window=0, sm_scale=1.0)
 
 
-@pytest.mark.parametrize("kdt,vdt", [(torch.int32, torch.int32), (torch.int64, torch.int64),
-                                     (torch.int64, torch.int32)])
-@pytest.mark.parametrize("bsz,b", [(1, 8), (1000, 11), (70000, 16)])
+LEAF_DTYPES = [(torch.int32, torch.int32), (torch.int32, torch.int64),
+               (torch.int64, torch.int32), (torch.int64, torch.int64)]
+
+
+@pytest.mark.parametrize("kdt,vdt", LEAF_DTYPES, ids=lambda d: str(d).split(".")[-1])
+@pytest.mark.parametrize("b", [2, 4, 8, 11, 16, 24, 40, 64])  # 40, 64: two 32-slot steps
+@pytest.mark.parametrize("bsz", [1, 1001, 70_000])  # 1001: no multiple of the rows a block takes
 def test_leaf_probe_kernel_equals_plain(cuda, bsz, b, kdt, vdt):
-    rng = np.random.default_rng(bsz + b)
+    """B5 on seeded rows: hits at every slot, duplicate keys in a row (the
+    first wins), misses whose keys share the query's low 32 bits, and
+    all-EMPTY rows."""
+    rng = np.random.default_rng(bsz * 100 + b)
+    top = np.iinfo(np.int64 if kdt == torch.int64 else np.int32).max
     hi = 2**62 if kdt == torch.int64 else 2**30
     keys = rng.integers(-hi, hi, (bsz, b))
-    keys[:, 1] = keys[:, 3]  # duplicates: the first slot wins
+    keys[:, b // 2] = keys[:, b - 1]  # duplicates: the first slot wins
     queries = rng.integers(-hi, hi, bsz)
     hits = rng.random(bsz) < 0.6
     queries[hits] = keys[hits, rng.integers(0, b, bsz)[hits]]
     if kdt == torch.int64:  # same low 32 bits, other high bits
         keys[~hits, 0] = queries[~hits] ^ (1 << 40)
+    keys[rng.random(bsz) < 0.1] = top  # all-EMPTY rows
     vals = rng.integers(-(2**30), 2**30, (bsz, b))
     args = (torch.as_tensor(keys, dtype=kdt, device=cuda),
             torch.as_tensor(vals, dtype=vdt, device=cuda),
@@ -674,6 +686,66 @@ def test_leaf_probe_kernel_equals_plain(cuda, bsz, b, kdt, vdt):
     _eq(got[0], want[0], "slot")
     _eq(got[1], want[1], "val")
     assert got[1].dtype == vdt
+    if bsz > 1:  # the rows hold hits and misses
+        assert bool((want[0] >= 0).any()) and bool((want[0] < 0).any())
+
+
+@pytest.mark.parametrize("kdt,vdt", LEAF_DTYPES, ids=lambda d: str(d).split(".")[-1])
+def test_leaf_probe_kernel_equals_plain_at_the_tree_paths_rows(cuda, kdt, vdt):
+    """The tree path's shape: 16,384 rows of b = 11."""
+    rng = np.random.default_rng(11)
+    keys = rng.integers(0, 2**30, (16_384, 11))
+    queries = np.where(rng.random(16_384) < 0.5, keys[:, 7], rng.integers(0, 2**30, 16_384))
+    args = (torch.as_tensor(keys, dtype=kdt, device=cuda),
+            torch.as_tensor(rng.integers(0, 2**30, (16_384, 11)), dtype=vdt, device=cuda),
+            torch.as_tensor(queries, dtype=kdt, device=cuda))
+    got, want = lp_kernel.leaf_probe_cuda(*args), leaf_probe_ref(*args)
+    _eq(got[0], want[0], "slot")
+    _eq(got[1], want[1], "val")
+
+
+def test_leaf_probe_is_one_kernel_a_call(cuda, one_call_kernels):
+    assert len(one_call_kernels[0]["leaf_probe_groups"]) == 1, one_call_kernels
+
+
+@pytest.mark.parametrize("mode", ["elim", "occ"])
+@pytest.mark.parametrize("shards", [1, 4])
+def test_occ_tree_and_forest_on_card_match_oracle(cuda, mode, shards):
+    """occ mode and a four-shard forest on the card: Zipf-skewed mixed
+    rounds (duplicate keys, so occ runs sub-rounds; range lanes across the
+    shard boundaries) lane for lane equal to the oracle, every tree kernel
+    launched."""
+    from repro_torch.core import ABForest, check_forest_invariants
+    from repro_torch.data.workloads import zipf_keys
+
+    _lib.reset_counts()
+    rng = np.random.default_rng(17)
+    cfg = TreeConfig(capacity=256, b=11, a=2, max_height=24)
+    t = (ABTree(cfg, mode=mode, device=cuda) if shards == 1 else
+         ABForest(shards, cfg, mode=mode, key_space=(0, 4000), device=cuda))
+    o = DictOracle()
+    for r in range(10):
+        ops = rng.choice([OP_INSERT] * 3 + [OP_DELETE, OP_FIND, OP_RANGE], 512).astype(np.int32)
+        keys = zipf_keys(rng, 512, 4000, 0.8)
+        vals = rng.integers(0, 10**9, 512).astype(np.int64)
+        vals[ops == OP_RANGE] = rng.integers(0, 400, int((ops == OP_RANGE).sum()))
+        out = t.apply_round(ops, keys, vals, scan_cap=16)
+        res, fnd, scans = o.apply_mixed_round(ops, keys, vals, cap=16)
+        assert out.results.tolist() == res and out.found.tolist() == fnd, r
+        for i, rows in enumerate(scans):
+            if rows is not None:
+                n = int(out.scan.count[i])
+                assert list(zip(out.scan.keys[i, :n].tolist(), out.scan.vals[i, :n].tolist())) == rows
+    if shards == 1:
+        check_invariants(t.state, t.cfg)
+    else:
+        check_forest_invariants(t)
+        assert list(t.scan_stream(900, 3100, cap=64)) == o.range(900, 3100)
+    assert t.items() == o.items()
+    if mode == "occ":
+        assert t.stats()["subrounds"] > 10
+    for name in ("descend_probe", "frontier_compact", "elim_combine", "range_scan"):
+        assert _lib.COUNTERS[name].launches > 0, name
 
 
 def test_train_step_on_card_matches_cpu(cuda):

@@ -23,7 +23,7 @@ from repro.obs.witness import check_history  # noqa: E402
 from repro.serve import engine as jengine  # noqa: E402
 from repro.serve import pages as jpages  # noqa: E402
 
-from repro_torch.core import DictOracle, check_invariants  # noqa: E402
+from repro_torch.core import DictOracle, check_forest_invariants, check_invariants  # noqa: E402
 from repro_torch.interop import params_from_numpy  # noqa: E402
 from repro_torch.models.config import ModelConfig  # noqa: E402
 from repro_torch.serve import Request, ServeEngine  # noqa: E402
@@ -55,22 +55,62 @@ def _index_script(rng):
     return calls
 
 
+# index knobs: one elim tree (the default), occ mode, a forest of two
+# shards (and, for sessions, a forest that splits as ids pile up)
+INDEX_KNOBS = [dict(), dict(mode="occ"), dict(shards=2)]
+
+
+def _check_index(t):
+    if t.tree.n_shards > 1:
+        check_forest_invariants(t.tree)
+    else:
+        check_invariants(t.tree.state, t.tree.cfg)
+
+
+def _knob_id(kw):
+    return "-".join(f"{k}={v}" for k, v in kw.items())
+
+
 def test_prefix_index_equals_jax():
+    _prefix_index_equals_jax({})
+
+
+@pytest.mark.parametrize("kw", INDEX_KNOBS[1:], ids=_knob_id)
+def test_prefix_index_knobs_equal_jax(kw):
+    _prefix_index_equals_jax(kw)
+
+
+def _prefix_index_equals_jax(kw):
     rng = np.random.default_rng(1)
-    t, j = pages.PrefixIndex(device="cpu"), jpages.PrefixIndex()
+    t, j = pages.PrefixIndex(device="cpu", **kw), jpages.PrefixIndex(**kw)
     for name, args in _index_script(rng):
         assert getattr(t, name)(*args) == getattr(j, name)(*args), name
     assert t.tree.items() == j.tree.items()
     assert t.stats() == j.stats()
-    check_invariants(t.tree.state, t.tree.cfg)
+    assert type(t.tree).__name__ == type(j.tree).__name__ and t.tree.mode == j.tree.mode
+    _check_index(t)
     records = [json.loads(x) for x in t.tree.recorder.dump_records()]
     assert records == [json.loads(x) for x in j.tree.recorder.dump_records()]
+
+
+SESSION_KNOBS = INDEX_KNOBS + [dict(shards=2, key_space=(0, 64), max_keys_per_shard=20)]
 
 
 def test_session_index_evict_range_equals_jax():
     """Monotone session ids, swept in chunks: each ``evict_range`` returns
     the same page ids as JAX, in as many fused scan+delete rounds."""
-    t, j = pages.SessionIndex(device="cpu"), jpages.SessionIndex()
+    _session_index_equals_jax({})
+
+
+@pytest.mark.parametrize("kw", SESSION_KNOBS[1:], ids=_knob_id)
+def test_session_index_knobs_evict_range_equal_jax(kw):
+    """The same in occ mode and on forests, whose sweeps straddle shard
+    boundaries."""
+    _session_index_equals_jax(kw)
+
+
+def _session_index_equals_jax(kw):
+    t, j = pages.SessionIndex(device="cpu", **kw), jpages.SessionIndex(**kw)
     oracle = DictOracle()
     rids = list(range(50))
     vals = [1000 + 3 * r for r in rids]
@@ -86,17 +126,27 @@ def test_session_index_evict_range_equals_jax():
             assert oracle.d.pop(r) in got
     assert t.tree.items() == j.tree.items() == oracle.items()
     assert t.stats() == j.stats()
+    if t.tree.n_shards > 1:
+        assert np.array_equal(t.tree.splits, j.tree.splits)
+    _check_index(t)
     records = [json.loads(x) for x in t.tree.recorder.dump_records()]
     assert records == [json.loads(x) for x in j.tree.recorder.dump_records()]
     assert sum(r.get("fused") == "scan_delete" for r in records) > 4  # chunked sweeps
     check_history(records)
 
 
-@pytest.mark.parametrize(
-    "kw,match",
-    [(dict(mode="occ"), "item 1"), (dict(shards=2), "item 3"),
-     (dict(durable_dir="x"), "item 4")],
-)
+def test_session_forest_splits_as_ids_pile_up():
+    """The capped session forest of ``SESSION_KNOBS`` re-partitioned its
+    live id range, as JAX's did (the split points are held equal above)."""
+    t = pages.SessionIndex(device="cpu", **SESSION_KNOBS[-1])
+    t.publish_batch(list(range(50)), list(range(50)))
+    assert t.tree.n_shards > 2 and t.tree.metrics.value("shard_splits") > 0
+
+
+@pytest.mark.parametrize("kw,match", [
+    pytest.param(dict(durable_dir="x"), "item 4", id="kw2-item 4"),  # the id it had beside occ, shards
+    pytest.param(dict(faults=object()), "item 4", id="faults-item 4"),
+])
 def test_unported_index_knobs_name_the_roadmap_item(kw, match):
     with pytest.raises(NotImplementedError, match=match):
         pages.PrefixIndex(device="cpu", **kw)
@@ -117,12 +167,19 @@ def _requests(n, seed):
 ENGINE = dict(max_batch=2, s_max=300, n_pages=6)  # 2 pages a request: retire evicts
 
 
-@pytest.fixture(scope="module", params=[False, True], ids=["serial", "pipelined"])
+# (pipelined, index knobs): the serial and pipelined engines on one elim
+# tree per index, and the serial engine on two-shard occ forests
+ENGINE_CASES = [(False, {}), (True, {}), (False, dict(index_shards=2, index_mode="occ"))]
+
+
+@pytest.fixture(scope="module", params=ENGINE_CASES,
+                ids=["serial", "pipelined", "serial-2shards-occ"])
 def engines(request):
+    pipelined, knobs = request.param
     jcfg, tcfg = JModelConfig(**TINY), ModelConfig(**TINY)
-    jeng = jengine.ServeEngine(jcfg, pipelined=request.param, **ENGINE)
+    jeng = jengine.ServeEngine(jcfg, pipelined=pipelined, **knobs, **ENGINE)
     params = params_from_numpy(jax.tree.map(np.asarray, jeng.params))
-    teng = ServeEngine(tcfg, pipelined=request.param, device="cpu", params=params, **ENGINE)
+    teng = ServeEngine(tcfg, pipelined=pipelined, device="cpu", params=params, **knobs, **ENGINE)
     for eng, req in ((jeng, jengine.Request), (teng, Request)):
         for rid, prompt, max_new in _requests(5, seed=3):
             eng.submit(req(rid=rid, prompt=prompt, max_new=max_new))
@@ -154,7 +211,8 @@ def test_engine_indexes_equal_jax(engines):
     for name in ("index", "sessions"):
         t, j = getattr(teng, name).tree, getattr(jeng, name).tree
         assert t.items() == j.items(), name
-        check_invariants(t.state, t.cfg)
+        assert (t.n_shards, t.mode) == (j.n_shards, j.mode), name
+        _check_index(getattr(teng, name))
         records = [json.loads(x) for x in t.recorder.dump_records()]
         assert records == [json.loads(x) for x in j.recorder.dump_records()], name
 

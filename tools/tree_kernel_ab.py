@@ -1,14 +1,20 @@
 #!/usr/bin/env python3
 """Old/new A/B of the tree kernels K1 (descend_probe), K2
-(frontier_compact), K3 (elim_combine) and K4 (range_scan) on one CUDA card.
+(frontier_compact), K3 (elim_combine), K4 (range_scan) and the leaf probe
+B5 (leaf_probe) on one CUDA card.
 
 Run from the root of a checkout, on a machine with one card:
 
     mkdir -p build/ab/old
-    for k in descend_probe frontier_compact elim_combine range_scan; do
+    for k in descend_probe frontier_compact elim_combine range_scan leaf_probe; do
       git show <commit>:src/repro_torch/csrc/$k.cu > build/ab/old/$k.cu
     done
     python3 tools/tree_kernel_ab.py --old build/ab/old
+
+``--kernels`` picks some of the five (default all; only their sources need
+be in ``--old``): the leaf probe's first design, one thread a row, is
+``git show b2c7b19:src/repro_torch/csrc/leaf_probe.cu``, and
+``--kernels leaf_probe`` times it alone against the build.
 
 To time a variant of a kernel, put its edited source in the ``--old``
 directory.  The tool drives ``chip_smoke.py``'s tree path once (the same
@@ -18,11 +24,13 @@ lookup (``chip_smoke.py``'s serve requests published into the port's
 ``PrefixIndex``, b = 8, as the engine admits them, then the hot request's
 lookup), and records K2's and K4's calls in a session index's sweep (the
 serve requests' ids published into a ``SessionIndex``, b = 8, then one
-``evict_range`` over them at its cap of 256).  It builds the old sources
+``evict_range`` over them at its cap of 256).  B5 runs over the leaf rows
+that K1 reached in those two calls (16,384 x 11 and 8 x 8, int64), as
+``chip_smoke.py`` replays it.  It builds the old sources
 beside the port's own build ("new"), holds both bit-equal to the plain
 version on every case, and times each as CUDA-graph replays
 (``chip_smoke.graph_ms``) in turns, the order reversed every other pass.
-K3 is also timed on seeded inputs of other widths.  The old K1 and K3
+K3 is also timed on seeded inputs of other widths.  The old K1, K3 and B5
 take the current entry points.  The old K2 and K4 take either the current
 ones or those of their first designs (a K2 that wrote only raw slots and
 row totals, a K4 that took its shared-memory width, as in commit 673b980):
@@ -61,7 +69,7 @@ import chip_smoke  # noqa: E402
 
 PASSES = 4
 K3_WIDTHS = ((1, 1), (1, 2048), (1, 65_536), (3, 16_384))
-KERNELS = ("descend_probe", "frontier_compact", "elim_combine", "range_scan")
+KERNELS = ("descend_probe", "frontier_compact", "elim_combine", "range_scan", "leaf_probe")
 CALL_ITERS = 200
 
 
@@ -119,9 +127,14 @@ def serve_sweep_calls(torch, lib, dev):
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--old", type=Path, required=True,
-                    help="directory with the previous sources of the four tree kernels")
+                    help="directory with the previous sources of the kernels to time")
+    ap.add_argument("--kernels", default=",".join(KERNELS),
+                    help=f"comma-separated subset of {','.join(KERNELS)}")
     ap.add_argument("--out", type=Path, help="also write the result to this JSON file")
     args = ap.parse_args(argv)
+    selected = args.kernels.split(",")
+    if not set(selected) <= set(KERNELS):
+        ap.error(f"--kernels: unknown {sorted(set(selected) - set(KERNELS))}")
 
     import torch
 
@@ -139,7 +152,7 @@ def main(argv=None) -> int:
     out_dir = lib.BUILD_DIR / "ab"
     out_dir.mkdir(parents=True, exist_ok=True)
     jobs = {}
-    for kernel in KERNELS:
+    for kernel in selected:
         out = out_dir / f"{kernel}_old.so"
         jobs[f"{kernel}:old"] = ([lib._nvcc(), *lib.NVCC_FLAGS, "-o", str(out),
                                   str(args.old / f"{kernel}.cu")], out)
@@ -150,11 +163,11 @@ def main(argv=None) -> int:
         if p.returncode != 0:
             raise RuntimeError(f"nvcc failed for {n}:\n{out.decode(errors='replace')}")
     paths = {n: o for n, (_, o) in jobs.items()}
-    paths.update({f"{k}:new": libs[k] for k in KERNELS})
+    paths.update({f"{k}:new": libs[k] for k in selected})
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
-    summary, recorded = chip_smoke.run_main_path(torch, core, lib, zipf_keys)
+    summary, recorded = chip_smoke.run_main_path(torch, core, lib, zipf_keys)[:2]
     dev = torch.device("cuda")
 
     def c_fn(path, name, argtypes):
@@ -183,6 +196,20 @@ def main(argv=None) -> int:
               for name, p in paths.items() if name.startswith("descend_probe:")}
     k1_cases = {"main_path": recorded["descend_probe"][0],
                 "serve_lookup": serve_lookup_call(torch, lib, dev)}
+
+    # B5: every build takes the current entry point
+    def b5(path, lk, lv, lq):
+        fn = c_fn(path, "leaf_probe_launch", [lib.P] * 5 + [lib.I32] * 4 + [lib.P])
+        bits = {torch.int32: 32, torch.int64: 64}
+
+        def call():
+            outs = (torch.empty(lq.shape, dtype=torch.int32, device=dev),
+                    torch.empty(lq.shape, dtype=lv.dtype, device=dev))
+            lib.check(fn(lk.data_ptr(), lv.data_ptr(), lq.data_ptr(),
+                         *(o.data_ptr() for o in outs), *lk.shape, bits[lk.dtype],
+                         bits[lv.dtype], lib.stream_of(dev)), "leaf_probe")
+            return outs
+        return call
 
     # K3: each build with its own zeroed look-back scratch
     def k3(path, a):
@@ -276,15 +303,17 @@ def main(argv=None) -> int:
         return call
 
     # K2 and K4 of ``--old``: the first designs' entry points, or the current
-    first = not hasattr(ctypes.CDLL(str(paths["range_scan:old"])), "range_scan_scratch_pairs")
+    first = "range_scan" in selected and not hasattr(
+        ctypes.CDLL(str(paths["range_scan:old"])), "range_scan_scratch_pairs")
 
     def first_design(name):
         return first and name.endswith(":old")
 
-    sweep_k2, sweep_k4 = serve_sweep_calls(torch, lib, dev)
-    k2_cases = {"main_path": max(recorded["frontier_compact"], key=lambda c: int(c[1].sum())),
-                "serve_sweep": sweep_k2}
-    k4_cases = {"main_path": recorded["range_scan"][-1], "serve_sweep": sweep_k4}
+    if {"frontier_compact", "range_scan"} & set(selected):
+        sweep_k2, sweep_k4 = serve_sweep_calls(torch, lib, dev)
+        k2_cases = {"main_path": max(recorded["frontier_compact"], key=lambda c: int(c[1].sum())),
+                    "serve_sweep": sweep_k2}
+        k4_cases = {"main_path": recorded["range_scan"][-1], "serve_sweep": sweep_k4}
 
     def turns(fns):
         """Median graph-replay ms of each fn over PASSES passes in turns."""
@@ -303,8 +332,9 @@ def main(argv=None) -> int:
               "old_k2_k4": "first designs" if first else "current entry points",
               "tree": {k: summary[k] for k in ("height", "live_nodes", "pool_rows")},
               "floor_ms": chip_smoke.graph_ms(torch, lambda: one.add_(1))}
-    result["descend_probe"] = {}
-    for case, call in k1_cases.items():
+    if "descend_probe" in selected:
+        result["descend_probe"] = {}
+    for case, call in k1_cases.items() if "descend_probe" in selected else ():
         want = td_ref.descend_probe_ref(*call[:-1], **call[-1])
         fns = {k: k1(fn, *call) for k, fn in k1_fns.items()}
         for k, fn in fns.items():
@@ -312,8 +342,9 @@ def main(argv=None) -> int:
                 raise AssertionError(f"descend_probe {k} ({case}): differs from the plain version")
         result["descend_probe"][case] = {"pool": list(call[0].shape),
                                          "queries": list(call[5].shape), **turns(fns)}
-    result["elim_combine"] = {}
-    for case, a in k3_cases():
+    if "elim_combine" in selected:
+        result["elim_combine"] = {}
+    for case, a in k3_cases() if "elim_combine" in selected else ():
         want = ec_ref.elim_combine_ref(*a)
         fns = {name.partition(":")[2]: k3(p, a)
                for name, p in paths.items() if name.startswith("elim_combine:")}
@@ -321,8 +352,9 @@ def main(argv=None) -> int:
             if not equal(fn(), want):
                 raise AssertionError(f"elim_combine {k} ({case}): differs from the plain version")
         result["elim_combine"][case] = {"shape": list(a[0].shape), **turns(fns)}
-    result["frontier_compact"] = {}
-    for case, (cand, valid, kw) in k2_cases.items():
+    if "frontier_compact" in selected:
+        result["frontier_compact"] = {}
+    for case, (cand, valid, kw) in k2_cases.items() if "frontier_compact" in selected else ():
         want = td_ref.frontier_compact_plain(cand, valid, kw["f"], scratch=kw["scratch"])
         fns = {name.partition(":")[2]: k2(p, cand, valid, kw, first_design(name))
                for name, p in paths.items() if name.startswith("frontier_compact:")}
@@ -344,8 +376,9 @@ def main(argv=None) -> int:
                 torch, lambda: raw(cand.data_ptr(), valid.data_ptr(),
                                    *(o.data_ptr() for o in raw_out), bsz, m, kw["f"],
                                    lib.stream_of(dev)))
-    result["range_scan"] = {}
-    for case, (ck, cv, lo, hi, kw) in k4_cases.items():
+    if "range_scan" in selected:
+        result["range_scan"] = {}
+    for case, (ck, cv, lo, hi, kw) in k4_cases.items() if "range_scan" in selected else ():
         want = rs_ref.range_scan_ref(ck, cv, lo, hi, kw["cap"])
         fns = {name.partition(":")[2]: k4(p, ck, cv, lo, hi, kw, first_design(name))
                for name, p in paths.items() if name.startswith("range_scan:")}
@@ -355,6 +388,20 @@ def main(argv=None) -> int:
         result["range_scan"][case] = {
             "cand": list(ck.shape), "cap": kw["cap"], "emitted": int(want[2].sum()), **turns(fns),
             "call_ms": {k: chip_smoke.time_ms(torch, fn, CALL_ITERS) for k, fn in fns.items()}}
+    if "leaf_probe" in selected:
+        from repro_torch.kernels.leaf_probe import ref as lp_ref
+
+        result["leaf_probe"] = {}
+        for case, call in k1_cases.items():
+            lk, lv, lq = chip_smoke.leaf_rows(torch, call)[:3]
+            want = lp_ref.leaf_probe_ref(lk, lv, lq)
+            fns = {name.partition(":")[2]: b5(p, lk, lv, lq)
+                   for name, p in paths.items() if name.startswith("leaf_probe:")}
+            for k, fn in fns.items():
+                if not equal(fn(), want):
+                    raise AssertionError(f"leaf_probe {k} ({case}): differs from the plain version")
+            result["leaf_probe"][case] = {"rows": list(lk.shape), "hits": int((want[0] >= 0).sum()),
+                                          **turns(fns)}
     if args.out:
         args.out.parent.mkdir(parents=True, exist_ok=True)
         args.out.write_text(json.dumps(result, indent=1))
