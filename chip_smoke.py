@@ -46,6 +46,18 @@ csrc`` (one ``nvcc`` per source, in parallel, into ``build/``), then:
    indexes sharded four ways (``PrefixIndex`` / ``SessionIndex`` as
    ``ServeEngine(index_shards=4)`` builds them) through a few hundred
    publish / lookup / evict calls, each checked against a ``DictOracle``;
+   then durability (``run_durable_path``): ``DurableABTree`` at the tree
+   path's configuration and mix with its journal on a disk-backed
+   filesystem (its type and device printed), prefilled with the tree
+   path's keys, warm-up and measured rounds each checked against the oracle
+   after its commit returned; a ``mid_manifest`` crash two commits ahead,
+   ``recover`` on the card (timed by phase) equal to the committed prefix
+   and to ``recover(device="cpu")`` of a copy; groups of 8 rounds
+   committed on the background thread; a seeded ``FaultPlan`` (two
+   ``eio`` fsyncs retried, a torn segment truncated and quarantined at
+   recovery); occ (the paper's p-OCC) on a tree of the same keys, Zipf and
+   uniform rounds beside uniform elim rounds; the sharded indexes
+   journaled, closed and warm-restarted against their oracles;
 3. drives the serving path: ``ServeEngine`` on qwen2-0.5b at its full
    width and depth (24 layers, bf16 compute over fp32 weights made from the
    seed), max_batch 8, s_max 1024, 32 KV pages; 8 requests of 512-token
@@ -142,6 +154,19 @@ FOREST_WARMUP, FOREST_ROUNDS = 3, 10
 FOREST_STREAM_CAP, FOREST_STREAM_HALF = 128, 20_000  # scan_stream around splits[0]
 # sharded indexes without a model: steps of (publish, lookup, evict) calls
 INDEX_SHARDS, INDEX_STEPS = 4, 100
+# durable phase: DurableABTree at the tree path's configuration and mix, its
+# journal in a fresh directory on a disk-backed filesystem (journal_dir)
+DURABLE_WARMUP, DURABLE_ROUNDS, SIDECAR_ROUNDS = 3, 20, 3
+DURABLE_GROUP, DURABLE_GROUP_ROUNDS = 8, 10
+# the group's age bound: the default 0.05 s would close a group of these
+# ~0.1 s rounds after two of them
+DURABLE_GROUP_MAX_WAIT_S = 10.0
+DURABLE_FAULT_ROUNDS = 7  # eio at the 2nd and 4th commit, a torn segment at the 6th
+DURABLE_OCC_PREFILL = KEY_RANGE // 2  # the first cut to make if the phase runs long
+DURABLE_OCC_ZIPF, DURABLE_UNIFORM = 1, 3
+DURABLE_INDEX_GROUP = 4
+COMMIT_HISTS = ("commit_capture_s", "journal_flush_s", "manifest_commit_s", "commit_latency_s",
+                "journal_gc_s")
 TREE_KERNELS = ("descend_probe", "frontier_compact", "elim_combine", "range_scan")
 SERVE_KERNELS = TREE_KERNELS + ("decode_attention",)
 # serve phase: qwen2-0.5b at full width and depth
@@ -235,7 +260,7 @@ def prefill(tree, oracle, core, rng, n_keys: int, key_range: int, name: str) -> 
         check_round(out, oracle.apply_mixed_round(ops, chunk, vals), ops, core.OP_RANGE,
                     f"{name} prefill {i}")
         log(f"{name} prefill {i + chunk.size}/{n_keys}: {time.perf_counter() - t0:.1f}s, "
-            f"{int(tree.stacked.alloc.sum())} nodes")
+            f"{int(getattr(tree, 'tree', tree).stacked.alloc.sum())} nodes")
     return time.perf_counter() - t0
 
 
@@ -609,27 +634,46 @@ def run_forest_path(torch, core, lib, zipf_keys):
     return {"auto_repartition": auto, "static": static, "launches": launch_counts(lib)}, recorded
 
 
-def run_index_path(torch, core, lib):
+def index_knobs(durable_dir=None) -> dict:
+    """The two indexes' constructor knobs, as ``ServeEngine(index_shards=
+    INDEX_SHARDS)`` builds them; with ``durable_dir``, journaled below it
+    in groups of DURABLE_INDEX_GROUP rounds committed on the background
+    thread."""
+    n_pages = SERVE_ENGINE["n_pages"]
+    knobs = {"index": dict(shards=INDEX_SHARDS),
+             "sessions": dict(shards=INDEX_SHARDS, key_space=(0, 1 << 31),
+                              max_keys_per_shard=max(64, n_pages // INDEX_SHARDS))}
+    if durable_dir is not None:
+        for name, kw in knobs.items():
+            kw.update(durable_dir=str(Path(durable_dir) / name),
+                      group_commit_every=DURABLE_INDEX_GROUP, commit_async=True)
+    return knobs
+
+
+def run_index_path(torch, core, lib, durable_dir=None):
     """The serving indexes sharded four ways, driven without a model:
     ``PrefixIndex(shards=INDEX_SHARDS)`` and ``SessionIndex(shards=
     INDEX_SHARDS)`` as ``ServeEngine(index_shards=INDEX_SHARDS)`` builds
-    them, through INDEX_STEPS steps of publish / lookup / evict calls (hot
-    prefixes re-published and evicted, session ids allocated in order and
-    swept in ranges), every call checked against a ``DictOracle``
-    (``IndexAudit``) and both indexes against the oracles at the end."""
+    them (journaled under ``durable_dir`` when it is given), through
+    INDEX_STEPS steps of publish / lookup / evict calls (hot prefixes
+    re-published and evicted, session ids allocated in order and swept in
+    ranges), every call checked against a ``DictOracle`` (``IndexAudit``)
+    and both indexes against the oracles at the end.  The launch counts are
+    zeroed before the steps of volatile indexes only (the durable phase
+    counts its own).  Returns the summary, the indexes and the audit."""
     from types import SimpleNamespace
 
     from repro_torch.serve.pages import PrefixIndex, SessionIndex, _hash_chain
 
     n_pages = SERVE_ENGINE["n_pages"]
-    idx = SimpleNamespace(
-        index=PrefixIndex(shards=INDEX_SHARDS),
-        sessions=SessionIndex(shards=INDEX_SHARDS, key_space=(0, 1 << 31),
-                              max_keys_per_shard=max(64, n_pages // INDEX_SHARDS)))
+    knobs = index_knobs(durable_dir)
+    idx = SimpleNamespace(index=PrefixIndex(**knobs["index"]),
+                          sessions=SessionIndex(**knobs["sessions"]))
     audit = IndexAudit(idx, core)
     rng = np.random.default_rng(SEED + 4)
     hashes = [_hash_chain(i, (i,)) for i in range(256)]
-    lib.reset_counts()
+    if durable_dir is None:
+        lib.reset_counts()
     t0 = time.perf_counter()
     rid, floor = 0, 0
     for step in range(INDEX_STEPS):
@@ -650,8 +694,353 @@ def run_index_path(torch, core, lib):
                        "session_max_keys_per_shard": max(64, n_pages // INDEX_SHARDS)},
             "wall_s": wall, "calls": dict(audit.calls), "index_s_by_call": dict(audit.seconds_by),
             "prefix_shards": idx.index.tree.n_shards, "session_shards": idx.sessions.tree.n_shards,
-            "session_splits": idx.sessions.tree.splits.tolist(),
-            "launches": launch_counts(lib)}
+            "session_splits": _forest(idx.sessions.tree).splits.tolist(),
+            "launches": launch_counts(lib)}, idx, audit
+
+
+# ----------------------------------------------------------------------------
+# durable phase
+# ----------------------------------------------------------------------------
+
+
+def mount_of(path) -> dict:
+    """The filesystem that holds ``path``: its type, device and mount point
+    (the longest mount point of ``/proc/self/mounts`` above it)."""
+    real = str(Path(path).resolve())
+    best = {"fstype": "unknown", "device": "unknown", "mount": ""}
+    with open("/proc/self/mounts") as f:
+        for line in f:
+            dev, mnt, fstype = line.split()[:3]
+            mnt = mnt.replace("\\040", " ")
+            inside = real == mnt or real.startswith(mnt.rstrip("/") + "/")
+            if inside and len(mnt) >= len(best["mount"]):
+                best = {"fstype": fstype, "device": dev, "mount": mnt}
+    return best
+
+
+def journal_dir():
+    """A fresh directory for the durable phase's journals on a disk-backed
+    filesystem: under the checkout's ``build/``, else the temporary
+    directory, whichever is not tmpfs first (if both are, the checkout's,
+    marked so: fsync is then free)."""
+    import tempfile
+
+    candidates = [ROOT / "build", Path(tempfile.gettempdir())]
+    for parent in candidates:
+        parent.mkdir(parents=True, exist_ok=True)
+        if mount_of(parent)["fstype"] not in ("tmpfs", "ramfs"):
+            break
+    else:
+        parent = candidates[0]
+    base = Path(tempfile.mkdtemp(prefix="durable-", dir=parent))
+    return base, {**mount_of(base), "path": str(base),
+                  "tmpfs": mount_of(base)["fstype"] in ("tmpfs", "ramfs")}
+
+
+def percentiles_ms(vals) -> dict:
+    if not vals:
+        return {"n": 0}
+    ms = np.asarray(vals, np.float64) * 1e3
+    return {"n": int(ms.size), "p50": float(np.percentile(ms, 50)),
+            "p99": float(np.percentile(ms, 99)), "mean": float(ms.mean())}
+
+
+def durable_rounds(torch, t, oracle, core, zipf_keys, rng, n_rounds, name, *, uniform=False,
+                   faults=False):
+    """``n_rounds`` mixed rounds of BATCH lanes through a durable tree, each
+    checked against the oracle after its commit returned: per round its
+    wall ms, sub-rounds, and the journal's commits, flush bytes, fsyncs and
+    flushed node rows.  Unless the caller injected ``faults``, a failed
+    commit attempt or an open circuit breaker is an error (the durable
+    layer would absorb it and serve on)."""
+    rows = []
+    for r in range(n_rounds):
+        ops, keys, vals = mixed_round(rng, BATCH, KEY_RANGE, zipf_keys, core, uniform=uniform)
+        before, sub0 = dict(vars(t.dstats)), t.stats()["subrounds"]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = t.apply_round(ops, keys, vals, scan_cap=128)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        check_round(out, oracle.apply_mixed_round(ops, keys, vals, cap=128), ops, core.OP_RANGE,
+                    f"{name} round {r}")
+        after = vars(t.dstats)
+        if not faults and (after["commit_retries"] != before["commit_retries"] or t.degraded):
+            raise AssertionError(f"{name} round {r}: a commit failed with no injected fault "
+                                 f"({t.durability_status()})")
+        rows.append({"ms": ms, "subrounds": t.stats()["subrounds"] - sub0,
+                     **{k: after[k] - before[k] for k in
+                        ("commits", "flush_bytes", "fsyncs", "nodes_flushed", "commit_retries")}})
+    return rows
+
+
+def hist_marks(t) -> dict:
+    return {h: len(t.metrics.histogram_values(h)) for h in COMMIT_HISTS}
+
+
+def stage_summary(rows, t, marks, directory) -> dict:
+    """A durable stage's rounds: wall ms, ops/s and the journal's work a
+    round, the commit histograms (capture = the device gather and host
+    copy, journal_flush = the npz files written and fsynced, manifest =
+    the manifest write, rename and directory fsync, latency = the whole
+    commit, gc = the collection of unreferenced files after it) over the
+    stage's commits, and the journal's bytes on disk."""
+    ms = [r["ms"] for r in rows]
+    n = len(rows)
+    return {
+        "rounds": n, "round_ms_p50": float(np.percentile(ms, 50)),
+        "round_ms_p99": float(np.percentile(ms, 99)), "round_ms": ms,
+        "ops_per_s": BATCH * n / (sum(ms) / 1e3),
+        **{f"{k}_per_round": sum(r[k] for r in rows) / n
+           for k in ("subrounds", "commits", "flush_bytes", "fsyncs", "nodes_flushed",
+                     "commit_retries")},
+        "commit_ms": {h[:-2]: percentiles_ms(t.metrics.histogram_values(h)[marks[h]:])
+                      for h in COMMIT_HISTS},
+        "bytes_on_disk": dir_bytes(Path(directory)),
+    }
+
+
+def state_arrays_equal(a, b) -> list:
+    """Names of the fields where two stacked port states differ."""
+    from repro_torch.interop import state_to_numpy
+
+    x, y = state_to_numpy(a), state_to_numpy(b)
+    bad = [f"stats.{k}" for k in x["stats"] if not np.array_equal(x["stats"][k], y["stats"][k])]
+    return bad + [k for k in x if k != "stats" and not np.array_equal(x[k], y[k])]
+
+
+def run_durable_path(torch, core, lib, zipf_keys, volatile) -> dict:
+    """The durable phase at the tree path's configuration and traffic, its
+    journals in ``journal_dir()`` (removed at the end): (1) elim, group
+    commit 1: ``DurableABTree(PAPER)`` prefilled as the tree path is, then
+    warm-up and measured rounds, each checked against the oracle after its
+    commit returned, and a few with the flight recorder on (its forensics
+    sidecar is written at every commit); (2) a ``mid_manifest`` crash two
+    commits ahead, which must fire there, then ``recover`` on the card
+    (timed by phase), equal to the oracle's committed prefix, and
+    ``recover(device="cpu")`` of a copy, equal array for array; (3) groups
+    of DURABLE_GROUP rounds committed on the background thread, on the
+    recovered tree, then drain, close and recover; (4) a seeded fault plan
+    on a recovered tree: two ``eio`` fsyncs retried to success and one torn
+    segment, which recovery truncates and quarantines; (5) occ, the paper's
+    p-OCC, on a tree prefilled with the same keys: Zipf(1.0) and uniform
+    rounds, beside uniform rounds on the elim tree; (6) the sharded indexes
+    journaled, closed and warm-restarted.  The launch counts are zeroed
+    before and read after the whole phase; the volatile tree path's rounds
+    of this run (``volatile``) stand beside the durable ones."""
+    from repro_torch.core.oracle import check_invariants
+    from repro_torch.obs.recorder import Recorder
+    from repro_torch.serve.pages import PrefixIndex, SessionIndex
+
+    cfg = core.TreeConfig(**TREE_CFG)
+    base, mount = journal_dir()
+    log(f"durable phase: journals under {mount}")
+    lib.reset_counts()
+    t_phase = time.perf_counter()
+    seconds = {}
+    out = {"config": {**TREE_CFG, "key_range": KEY_RANGE, "prefill_keys": KEY_RANGE // 2,
+                      "occ_prefill_keys": DURABLE_OCC_PREFILL, "batch": BATCH,
+                      "warmup": DURABLE_WARMUP, "rounds": DURABLE_ROUNDS,
+                      "group_commit_every": DURABLE_GROUP, "group_rounds": DURABLE_GROUP_ROUNDS,
+                      "group_commit_max_wait_s": DURABLE_GROUP_MAX_WAIT_S,
+                      "snapshot_every": 64, "recorder": "off but in the sidecar rounds"},
+           "journal_fs": mount,
+           "volatile": {k: volatile[k] for k in ("round_ms_p50", "round_ms_p50_recorder_off",
+                                                 "ops_per_s")}}
+    try:
+        # 1. elim, group commit 1
+        t0 = time.perf_counter()
+        d1 = base / "elim"
+        t = core.DurableABTree(str(d1), cfg, mode="elim")
+        t.recorder = Recorder(enabled=False)
+        oracle = core.DictOracle()
+        prefill_s = prefill(t, oracle, core, np.random.default_rng(SEED), KEY_RANGE // 2,
+                            KEY_RANGE, "durable")
+        out["prefill"] = {"seconds": prefill_s, **vars(t.dstats),
+                          "full_snapshots": t.metrics.value("full_snapshots"),
+                          "pool_rows": int(t.tree.stacked.keys.shape[1])}
+        rng = np.random.default_rng(SEED + 5)
+        durable_rounds(torch, t, oracle, core, zipf_keys, rng, DURABLE_WARMUP, "durable warm-up")
+        marks = hist_marks(t)
+        rows = durable_rounds(torch, t, oracle, core, zipf_keys, rng, DURABLE_ROUNDS,
+                              "durable measured")
+        out["elim_group1"] = stage_summary(rows, t, marks, d1)
+        t.recorder = Recorder()
+        marks = hist_marks(t)
+        rows = durable_rounds(torch, t, oracle, core, zipf_keys, rng, SIDECAR_ROUNDS,
+                              "durable recorder on")
+        out["elim_group1_recorder_on"] = stage_summary(rows, t, marks, d1)
+        t.recorder = Recorder(enabled=False)
+        seconds["elim_group1"] = time.perf_counter() - t0
+        log(f"durable elim: round p50 {out['elim_group1']['round_ms_p50']:.1f} ms, commit "
+            f"{out['elim_group1']['commit_ms']['commit_latency']}")
+
+        # 2. crash two commits ahead, then recover on the card and on the CPU
+        t0 = time.perf_counter()
+        at = t._commit_idx + 2
+        t.crash = core.CrashPoint("mid_manifest", at_commit=at)
+        crashed = None
+        for r in range(4):
+            ops, keys, vals = mixed_round(rng, BATCH, KEY_RANGE, zipf_keys, core)
+            try:
+                res = t.apply_round(ops, keys, vals, scan_cap=128)
+            except core.SimulatedCrash:
+                if r != 2 or t._commit_idx != at:
+                    raise AssertionError(f"crash at round {r}, commit {t._commit_idx}; set for {at}")
+                crashed = r
+                break
+            check_round(res, oracle.apply_mixed_round(ops, keys, vals, cap=128), ops,
+                        core.OP_RANGE, f"durable pre-crash round {r}")
+        if crashed is None:
+            raise AssertionError(f"the mid_manifest crash at commit {at} did not fire")
+        t.close()
+        del t
+        copy = base / "elim-copy"
+        shutil.copytree(d1, copy)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        rt = core.recover(str(d1), group_commit_every=DURABLE_GROUP, commit_async=True,
+                          group_commit_max_wait_s=DURABLE_GROUP_MAX_WAIT_S)
+        torch.cuda.synchronize()
+        recover_s = time.perf_counter() - t1
+        rt.recorder = Recorder(enabled=False)
+        check_invariants(rt.tree.state, rt.tree.cfg)
+        if rt.tree.items() != oracle.items():
+            raise AssertionError("the recovered tree is not the committed prefix")
+        t1 = time.perf_counter()
+        on_cpu = core.recover(str(copy), device="cpu")
+        cpu_s = time.perf_counter() - t1
+        bad = state_arrays_equal(rt.tree.stacked, on_cpu.tree.stacked)
+        if bad:
+            raise AssertionError(f"recover on the card and on the CPU differ in {bad}")
+        del on_cpu
+        shutil.rmtree(copy)
+        out["recovery"] = {"crash": {"step": "mid_manifest", "at_commit": at, "round": crashed},
+                           "seconds": recover_s, **rt.recovery_timings,
+                           "cpu_seconds": cpu_s, "live_keys": len(oracle.d),
+                           "pool_rows": int(rt.tree.stacked.keys.shape[1]),
+                           "journal_bytes": dir_bytes(d1), "equal_on_cpu": True}
+        seconds["crash_recover"] = time.perf_counter() - t0
+        log(f"durable recovery: {out['recovery']}")
+
+        # 3. group commit 8, async, on the recovered tree
+        t0 = time.perf_counter()
+        marks, before = hist_marks(rt), dict(vars(rt.dstats))
+        rows = durable_rounds(torch, rt, oracle, core, zipf_keys, rng, DURABLE_GROUP_ROUNDS,
+                              "durable group")
+        rt.drain()
+        rt.close()
+        out["elim_group8_async"] = stage_summary(rows, rt, marks, d1)
+        # the rows count what had landed when each round returned; the
+        # drain's commit lands after them
+        out["elim_group8_async"]["journal_after_drain"] = {
+            k: v - before[k] for k, v in vars(rt.dstats).items()}
+        del rt
+        r2 = core.recover(str(d1))
+        if r2.tree.items() != oracle.items():
+            raise AssertionError("the drained group journal does not recover the oracle")
+        seconds["group8"] = time.perf_counter() - t0
+
+        # 4. faults on a recovered tree
+        t0 = time.perf_counter()
+        r2.recorder = Recorder(enabled=False)
+        c = r2._commit_idx
+        torn_at = c + 5 if (c + 5) % r2.snapshot_every else c + 6
+        r2.crash = core.FaultPlan(seed=SEED, specs=[
+            core.FaultSpec(site="segment_fsync", kind="eio", commits=(c + 1, c + 2), times=1),
+            core.FaultSpec(site="segment_fsync", kind="eio", commits=(c + 3, c + 4), times=1),
+            core.FaultSpec(site="segment_write", kind="torn", commits=(torn_at, torn_at + 1),
+                           times=1),
+        ])
+        before_torn = None
+        for r in range(DURABLE_FAULT_ROUNDS):
+            if r2._commit_idx == torn_at:
+                before_torn = dict(oracle.d)
+            durable_rounds(torch, r2, oracle, core, zipf_keys, rng, 1, f"durable faults {r}",
+                           faults=True)
+        status = r2.durability_status()
+        if (r2.dstats.commit_retries != 2 or status["degraded"] or before_torn is None
+                or r2.metrics.value("fault_injected") != 3):
+            raise AssertionError(f"faults: retries {r2.dstats.commit_retries}, {status}")
+        r2.close()
+        del r2
+        r3 = core.recover(str(d1))
+        r3.recorder = Recorder(enabled=False)
+        quarantined = list(r3._quarantined)
+        if r3.tree.items() != before_torn:
+            raise AssertionError("recovery past a torn segment is not the commit before it")
+        if not quarantined or r3.metrics.value("segments_quarantined") < 1:
+            raise AssertionError("the torn segment was not quarantined")
+        oracle.d = before_torn
+        # a recovery that truncated commits a full snapshot first
+        full = durable_rounds(torch, r3, oracle, core, zipf_keys, rng, 1, "durable post-recovery")
+        out["faults"] = {"eio_commits": [c + 1, c + 3], "torn_commit": torn_at,
+                         "commit_retries": status["commit_retries"],
+                         "faults_injected": status["faults_injected"],
+                         "quarantined": quarantined, "lands_on_commit": torn_at - 1,
+                         "post_recovery_round": full[0]}
+        seconds["faults"] = time.perf_counter() - t0
+
+        # 5. occ against elim, the paper's flush accounting
+        t0 = time.perf_counter()
+        marks = hist_marks(r3)
+        rows = durable_rounds(torch, r3, oracle, core, zipf_keys, np.random.default_rng(SEED + 6),
+                              DURABLE_UNIFORM,
+                              "durable elim uniform", uniform=True)
+        out["elim_uniform"] = stage_summary(rows, r3, marks, d1)
+        r3.close()
+        del r3, oracle
+        d2 = base / "occ"
+        t2 = core.DurableABTree(str(d2), cfg, mode="occ")
+        t2.recorder = Recorder(enabled=False)
+        oracle2 = core.DictOracle()
+        occ_prefill_s = prefill(t2, oracle2, core, np.random.default_rng(SEED),
+                                DURABLE_OCC_PREFILL, KEY_RANGE, "durable occ")
+        out["occ_prefill"] = {"seconds": occ_prefill_s, **vars(t2.dstats)}
+        rng_o = np.random.default_rng(SEED + 7)
+        if DURABLE_OCC_ZIPF:
+            marks = hist_marks(t2)
+            rows = durable_rounds(torch, t2, oracle2, core, zipf_keys, rng_o, DURABLE_OCC_ZIPF,
+                                  "durable occ zipf")
+            out["occ_zipf"] = stage_summary(rows, t2, marks, d2)
+        marks = hist_marks(t2)
+        rows = durable_rounds(torch, t2, oracle2, core, zipf_keys,
+                              np.random.default_rng(SEED + 6), DURABLE_UNIFORM,
+                              "durable occ uniform", uniform=True)
+        out["occ_uniform"] = stage_summary(rows, t2, marks, d2)
+        check_invariants(t2.tree.state, t2.tree.cfg)
+        if t2.tree.items() != oracle2.items():
+            raise AssertionError("the durable occ tree differs from the oracle")
+        t2.close()
+        del t2, oracle2
+        seconds["occ"] = time.perf_counter() - t0
+
+        # 6. the sharded indexes, journaled, closed and warm-restarted
+        t0 = time.perf_counter()
+        d3 = base / "indexes"
+        idx_summary, idx, audit = run_index_path(torch, core, lib, durable_dir=d3)
+        idx.index.close()
+        idx.sessions.close()
+        knobs = index_knobs(d3)
+        warm = {"index": PrefixIndex(**knobs["index"]),
+                "sessions": SessionIndex(**knobs["sessions"])}
+        for name, oname in (("index", "prefix"), ("sessions", "sessions")):
+            if warm[name].tree.items() != audit.oracles[oname].items():
+                raise AssertionError(f"the warm-restarted {oname} index differs from the oracle")
+            warm[name].close()
+        idx_summary["warm_restart"] = {name: {"n_shards": w.tree.n_shards,
+                                              "live_keys": len(w.tree.items())}
+                                       for name, w in warm.items()}
+        idx_summary["journal_bytes"] = dir_bytes(d3)
+        idx_summary.pop("launches")
+        out["indexes"] = idx_summary
+        seconds["indexes"] = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(base, ignore_errors=True)
+    out["seconds"] = {**seconds, "phase": time.perf_counter() - t_phase}
+    out["launches"] = launch_counts(lib)
+    log(f"durable phase: {out['seconds']}")
+    return out
 
 
 # ----------------------------------------------------------------------------
@@ -671,6 +1060,11 @@ def serve_requests(vocab: int):
         else:
             out.append((rid, rng.integers(0, vocab, SERVE_PROMPT).tolist(), False))
     return out
+
+
+def _forest(holder):
+    """The round-engine holder under a durable index (its ``ABForest``)."""
+    return getattr(holder, "forest", holder)
 
 
 class IndexAudit:
@@ -735,10 +1129,11 @@ class IndexAudit:
 
     def check(self, eng):
         for name, index in (("prefix", eng.index), ("sessions", eng.sessions)):
-            if index.tree.n_shards > 1:
-                self.core.check_forest_invariants(index.tree)
+            tree = _forest(index.tree)
+            if tree.n_shards > 1:
+                self.core.check_forest_invariants(tree)
             else:
-                self.core.check_invariants(index.tree.state, index.tree.cfg)
+                self.core.check_invariants(tree.state, tree.cfg)
             if index.tree.items() != self.oracles[name].items():
                 raise AssertionError(f"{name} index contents differ from the oracle")
 
@@ -1491,7 +1886,7 @@ def kernel_report(torch, mods, libs, summary, recorded, serve_summary, serve_rec
     """Replay one main-path call per kernel against its plain version.
     ``libs``: kernel name -> built library; ``per_call``: the kernels one
     call of B7, K3, K2 and K4 ran (``one_kernel_calls``); ``paths``: the
-    occ, forest and sharded-index phases' summaries (their launch counts
+    occ, forest, sharded-index and durable phases' summaries (their launch counts
     join each row); ``forest_recorded``: the forest's first K1 and K3
     calls, at S = FOREST_SHARDS, replayed beside the K1 and K3 rows."""
     (td_kernel, td_ref, ec_kernel, ec_ref, rs_kernel, rs_ref, da_kernel, da_ref,
@@ -1755,8 +2150,10 @@ def main() -> int:
     del tree, oracle
     forest_summary, forest_recorded = run_forest_path(torch, core, lib, zipf_keys)
     print(json.dumps({"forest_path": forest_summary, "card": smi}), flush=True)
-    index_summary = run_index_path(torch, core, lib)
+    index_summary, _, _ = run_index_path(torch, core, lib)
     print(json.dumps({"sharded_indexes": index_summary, "card": smi}), flush=True)
+    durable_summary = run_durable_path(torch, core, lib, zipf_keys, summary)
+    print(json.dumps({"durable_path": durable_summary, "card": smi}), flush=True)
 
     # 3. the serving path at full width
     torch.backends.cuda.matmul.allow_tf32 = False  # f32 products in full f32
@@ -1775,7 +2172,8 @@ def main() -> int:
         torch, (td_kernel, td_ref, ec_kernel, ec_ref, rs_kernel, rs_ref, da_kernel, da_ref,
                 fa_kernel, fa_ops, fa_ref, lp_kernel, lp_ops, lp_ref),
         libs, summary, recorded, serve_summary, serve_recorded, per_call, train_summary,
-        train_recorded, {"occ": occ_summary, "forest": forest_summary, "index": index_summary},
+        train_recorded, {"occ": occ_summary, "forest": forest_summary, "index": index_summary,
+                         "durable": durable_summary},
         forest_recorded,
     )
     print(json.dumps({"kernels": rows}), flush=True)

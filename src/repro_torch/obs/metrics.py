@@ -85,6 +85,10 @@ class MetricsRegistry:
     def observe(self, name: str, value: float) -> None:
         self._hists.setdefault(name, []).append(float(value))
 
+    def histogram_values(self, name: str) -> List[float]:
+        """Every observation of ``name`` so far, in order (a copy)."""
+        return list(self._hists.get(name, []))
+
     def histogram_summary(self, name: str) -> dict:
         vals = sorted(self._hists.get(name, []))
         return {

@@ -37,6 +37,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import os
 import time
 from typing import Dict, List, Optional
 
@@ -78,7 +79,12 @@ class ServeEngine:
         n_pages: int = 1024,
         index_mode: str = "elim",
         index_shards: int = 1,
+        index_durable_dir: Optional[str] = None,
+        index_faults=None,
         pipelined: bool = False,
+        group_commit_every: int = 1,
+        group_commit_max_wait_s: float = 0.05,
+        commit_async: Optional[bool] = None,
         seed: int = 0,
         device=None,
         params=None,
@@ -86,8 +92,20 @@ class ServeEngine:
         """``params`` (a param tree of fp32 tensors, e.g. carried from the
         JAX package by ``repro_torch.interop``) replaces the initialization
         from ``seed``.  ``index_shards > 1`` partitions both indexes' key
-        spaces into an ``ABForest``.  The JAX engine's durable index knobs
-        come with durability."""
+        spaces into an ``ABForest``.
+
+        ``index_durable_dir`` journals both indexes as ``DurableForest``s
+        (``prefix/`` and ``sessions/`` below it): an engine pointed at the
+        same directory recovers its prefix cache warm.  ``index_faults`` (a
+        ``FaultPlan`` / ``CrashPoint``) is installed on both journals; the
+        durable layer's retry and circuit breaker keep ``tick()`` from
+        raising on a sick disk (it degrades to volatile serving, visible in
+        ``stats()["durability"]``).  ``group_commit_every > 1`` batches that
+        many index rounds per manifest rename on both journals;
+        ``commit_async`` (default: on whenever grouping is on) moves the
+        boundary commit I/O to the durable layer's background thread.
+        ``run_until_done()`` drains pending groups at exit; ``close()``
+        also stops the commit threads."""
         if device is None:
             if not torch.cuda.is_available():
                 raise RuntimeError(
@@ -100,6 +118,8 @@ class ServeEngine:
         self.max_batch = max_batch
         self.s_max = s_max
         self.pipelined = pipelined
+        if commit_async is None:
+            commit_async = group_commit_every > 1
         if params is None:
             params = init_params(backbone.model_spec(cfg), self.device, seed)
         # each weight cast to the compute dtype once here (the reference
@@ -112,11 +132,19 @@ class ServeEngine:
         # so static splits alone would route every live id to one shard:
         # max_keys_per_shard makes the forest re-partition the live id
         # range (live sessions are bounded by the page pool).
-        self.index = PrefixIndex(mode=index_mode, shards=index_shards, device=self.device)
+        durable = dict(faults=index_faults, group_commit_every=group_commit_every,
+                       group_commit_max_wait_s=group_commit_max_wait_s,
+                       commit_async=commit_async, device=self.device)
+
+        def journal(name):
+            return None if index_durable_dir is None else os.path.join(index_durable_dir, name)
+
+        self.index = PrefixIndex(mode=index_mode, shards=index_shards,
+                                 durable_dir=journal("prefix"), **durable)
         self.sessions = SessionIndex(
             mode=index_mode, shards=index_shards, key_space=(0, 1 << 31),
             max_keys_per_shard=None if index_shards == 1 else max(64, n_pages // index_shards),
-            device=self.device,
+            durable_dir=journal("sessions"), **durable,
         )
         # engine-level telemetry: tick latency + scheduler counters live in
         # the engine's own registry; the index holders keep theirs.
@@ -358,13 +386,18 @@ class ServeEngine:
             self._retired_since_sweep = 0
 
     def drain_durability(self):
-        """Flush both journals' pending commit groups: the engine-level
-        persist fence (a no-op while the indexes are volatile, which is all
-        the port has until durability is ported)."""
+        """Flush both journals' pending commit groups and join any in-flight
+        async commits: the engine-level persist fence (a no-op for volatile
+        or non-grouped indexes)."""
         for h in (self.index.tree, self.sessions.tree):
             drain = getattr(h, "drain", None)
             if drain is not None:
                 drain()
+
+    def close(self):
+        """Shut down: drain both journals and stop their commit threads."""
+        self.index.close()
+        self.sessions.close()
 
     def run_until_done(self, max_ticks: int = 10000):
         t = 0
@@ -387,4 +420,15 @@ class ServeEngine:
         s["metrics"] = self.metrics.snapshot()
         s["index_metrics"] = self.index.tree.metrics.snapshot()
         s["recorder"] = self.recorder.snapshot()
+        # durability degradation surface: present only when the indexes are
+        # journaled; "degraded" is True if EITHER index's circuit breaker
+        # is open (serving continues volatile, commits suspended).
+        durable = {
+            name: h.durability_status()
+            for name, h in (("prefix", self.index.tree), ("sessions", self.sessions.tree))
+            if hasattr(h, "durability_status")
+        }
+        if durable:
+            durable["degraded"] = any(v["degraded"] for v in durable.values())
+            s["durability"] = durable
         return s

@@ -15,19 +15,20 @@ Both run as batched rounds of the port's ``ABTree`` (or, with
 ``shards > 1``, its key-partitioned ``ABForest``), in elim or occ mode, so
 every lookup, publish and evict round runs the ``descend_probe`` and
 ``elim_combine`` kernels, and every session sweep the scan kernels
-(``frontier_compact``, ``range_scan``) before its delete round.
-
-Not ported yet: ``durable_dir`` / ``faults`` raise ``NotImplementedError``
-naming their roadmap item (queue A, item 4: durability).
+(``frontier_compact``, ``range_scan``) before its delete round.  The
+durable variant journals the index (``DurableForest``) so a restarted
+engine recovers its prefix cache (warm restart).
 """
 from __future__ import annotations
 
 import hashlib
+import os
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 
 from repro_torch.core.abtree import ABTree, OP_DELETE, OP_FIND, OP_INSERT, TreeConfig
+from repro_torch.core.durable import DurableForest, recover_forest
 from repro_torch.core.forest import ABForest
 
 PAGE = 256  # tokens per KV page
@@ -87,12 +88,6 @@ class PagedKVCache:
         return self.n_pages - len(self.free)
 
 
-def _not_ported(knob: str, item: int, what: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{knob} is not ported yet (ROADMAP.md queue A, item {item}: {what})"
-    )
-
-
 class PrefixIndex:
     """Prefix-block hash → page id, on the port's Elim-ABtree.
 
@@ -103,10 +98,17 @@ class PrefixIndex:
     hash domain; session indexes pass their id range instead);
     ``max_keys_per_shard`` is the forest's overflow-split threshold.
 
+    ``durable_dir`` backs the index with a ``DurableForest`` instead (any
+    shard count, per-shard journals): every update round commits before its
+    results are released (or, with ``group_commit_every`` > 1, at its
+    group's boundary), and an index pointed at a directory that holds a
+    ``MANIFEST`` recovers it (warm restart): shard count and split points
+    come back from the manifest, and a change of mode raises
+    ``ValueError``.  ``faults`` (a ``FaultPlan`` / ``CrashPoint``) is
+    installed on the journal.
+
     ``device`` defaults to ``"cuda"`` (the tree raises without a card);
-    tests pass ``device="cpu"``.  The JAX index's durability
-    (``durable_dir``, ``faults``) is refused until its roadmap item lands;
-    the knobs that only it reads (group commit, snapshots) come with it."""
+    tests pass ``device="cpu"``."""
 
     def __init__(
         self,
@@ -117,20 +119,56 @@ class PrefixIndex:
         key_space: Optional[Tuple[int, int]] = None,
         max_keys_per_shard: Optional[int] = None,
         durable_dir: Optional[str] = None,
+        snapshot_every: int = 64,
+        auto_repartition: bool = False,
         faults=None,
+        group_commit_every: int = 1,
+        group_commit_max_wait_s: float = 0.05,
+        commit_async: bool = False,
         device=None,
     ):
-        if durable_dir is not None or faults is not None:
-            raise _not_ported("a durable index", 4, "core/durable.py and core/faults.py")
         cfg = TreeConfig(capacity=capacity, b=8, a=2)
-        if shards > 1:
+        key_space = key_space if key_space is not None else (0, 1 << 63)
+        if durable_dir is not None:
+            if os.path.exists(os.path.join(durable_dir, "MANIFEST")):
+                self.tree = recover_forest(
+                    durable_dir, faults=faults, group_commit_every=group_commit_every,
+                    group_commit_max_wait_s=group_commit_max_wait_s,
+                    commit_async=commit_async, device=device,
+                )
+                # shard count / splits legitimately come from the manifest
+                # (the forest may have re-partitioned); a mode switch would
+                # silently change the durability discipline: refuse it.
+                if self.tree.forest.mode != mode:
+                    raise ValueError(
+                        f"durable index at {durable_dir!r} was journaled in "
+                        f"{self.tree.forest.mode!r} mode; requested {mode!r}"
+                    )
+            else:
+                self.tree = DurableForest(
+                    durable_dir, n_shards=shards, cfg=cfg, mode=mode,
+                    snapshot_every=snapshot_every, key_space=key_space,
+                    max_keys_per_shard=max_keys_per_shard,
+                    auto_repartition=auto_repartition, faults=faults,
+                    group_commit_every=group_commit_every,
+                    group_commit_max_wait_s=group_commit_max_wait_s,
+                    commit_async=commit_async, device=device,
+                )
+        elif shards > 1:
             self.tree = ABForest(
-                n_shards=shards, cfg=cfg, mode=mode,
-                key_space=key_space if key_space is not None else (0, 1 << 63),
-                max_keys_per_shard=max_keys_per_shard, device=device,
+                n_shards=shards, cfg=cfg, mode=mode, key_space=key_space,
+                max_keys_per_shard=max_keys_per_shard,
+                auto_repartition=auto_repartition, device=device,
             )
         else:
             self.tree = ABTree(cfg, mode=mode, device=device)
+
+    def close(self):
+        """Drain a durable index's pending group and stop its commit
+        threads (a no-op for a volatile index)."""
+        close = getattr(self.tree, "close", None)
+        if close is not None:
+            close()
 
     def lookup_batch(self, hashes: List[int]) -> List[Optional[int]]:
         if not hashes:
@@ -167,7 +205,8 @@ class SessionIndex(PrefixIndex):
     round's deletes).  With ``shards > 1`` it is still one fused round per
     chunk when ``[lo, hi)`` straddles shard boundaries; since ids are
     monotone, pair ``key_space`` with ``max_keys_per_shard`` so the forest
-    re-partitions the live id range."""
+    re-partitions the live id range.  It takes ``PrefixIndex``'s knobs,
+    durability included."""
 
     def __init__(self, mode: str = "elim", capacity: int = 1 << 12, **kw):
         super().__init__(mode=mode, capacity=capacity, **kw)

@@ -1,7 +1,7 @@
 """Boundary of the port: ``src/repro_torch``, ``chip_smoke.py`` and the
-port's chip tools under ``tools/`` import neither JAX nor the JAX package; the tree refuses to drop to the CPU on its
-own; and every kernel wrapper sends a CUDA tensor to its kernel, never to
-the plain version."""
+port's chip tools under ``tools/`` import neither JAX nor the JAX package; the tree, the forest, their
+durable variants and recovery refuse to drop to the CPU on their own; and every kernel wrapper sends a
+CUDA tensor to its kernel, never to the plain version."""
 import ast
 from pathlib import Path
 
@@ -9,7 +9,14 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
-from repro_torch.core import ABForest, ABTree, TreeConfig  # noqa: E402
+from repro_torch.core import (  # noqa: E402
+    ABForest,
+    ABTree,
+    DurableABTree,
+    DurableForest,
+    TreeConfig,
+    recover,
+)
 from repro_torch.kernels import _lib  # noqa: E402
 from repro_torch.kernels.decode_attention import kernel as da_kernel, ops as da_ops, ref as da_ref  # noqa: E402
 from repro_torch.kernels.elim_combine import kernel as ec_kernel, ops as ec_ops, ref as ec_ref  # noqa: E402
@@ -37,7 +44,8 @@ def test_port_files_found():
     names = {p.name for p in PORT_FILES}
     assert {"abtree.py", "rounds.py", "forest.py", "elimination.py", "chip_smoke.py", "_lib.py",
             "engine.py", "pages.py", "backbone.py", "attention.py", "trainer.py", "step.py",
-            "adamw.py", "manager.py", "pipeline.py", "tree_kernel_ab.py"} <= names
+            "adamw.py", "manager.py", "pipeline.py", "tree_kernel_ab.py", "durable.py",
+            "faults.py"} <= names
 
 
 @pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(ROOT)))
@@ -56,6 +64,23 @@ def test_forest_without_device_raises_on_a_host_without_cuda(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         ABForest(2, TreeConfig(capacity=64, b=8, a=2, max_height=8))
+
+
+@pytest.mark.parametrize("build", [
+    lambda d: DurableABTree(d, TreeConfig(capacity=64, b=8, a=2, max_height=8)),
+    lambda d: DurableForest(d, 2, TreeConfig(capacity=64, b=8, a=2, max_height=8)),
+    recover,
+], ids=["DurableABTree", "DurableForest", "recover"])
+def test_durable_without_device_raises_on_a_host_without_cuda(monkeypatch, tmp_path, build):
+    """Neither a durable holder nor recovery runs on the CPU unless asked:
+    both raise before they touch the directory."""
+    d = tmp_path / "journal"
+    DurableABTree(str(d), TreeConfig(capacity=64, b=8, a=2, max_height=8), device="cpu").close()
+    listing = sorted(p.name for p in d.iterdir())
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        build(str(d))
+    assert sorted(p.name for p in d.iterdir()) == listing
 
 
 class _Reached(Exception):

@@ -855,3 +855,111 @@ def test_serve_engine_on_card_matches_cpu(cuda):
     assert want[3] > 0
     for key, got in runs.items():
         assert got == want, key
+
+
+# -- durability on the card -------------------------------------------------------
+
+
+def _durable_rounds(n_rounds, seed, bsz=64, key_range=256):
+    rng = np.random.default_rng(seed)
+    return [(rng.choice([OP_INSERT, OP_DELETE], bsz).astype(np.int32),
+             rng.integers(0, key_range, bsz).astype(np.int64),
+             rng.integers(0, 1000, bsz).astype(np.int64)) for _ in range(n_rounds)]
+
+
+def _journal_arrays(d):
+    """Every npz array and every manifest field of a journal directory, but
+    the fields that hang on the npz files' bytes (their zip members carry
+    the time they were written): ``file_crcs`` values and ``checksum``."""
+    import json
+    import os
+
+    out = {}
+    for name in sorted(os.listdir(d)):
+        path = os.path.join(d, name)
+        if name.endswith(".npz"):
+            with np.load(path) as z:
+                out[name] = {k: z[k] for k in z.files}
+        elif name.startswith("MANIFEST"):
+            m = json.load(open(path))
+            m["file_crcs"] = sorted(m["file_crcs"])
+            m.pop("checksum")
+            out[name] = m
+    return out
+
+
+def _same_journal(a, b):
+    ja, jb = _journal_arrays(a), _journal_arrays(b)
+    assert list(ja) == list(jb)
+    for name, x in ja.items():
+        if name.endswith(".npz"):
+            assert list(x) == list(jb[name]), name
+            for k, v in x.items():
+                assert v.dtype == jb[name][k].dtype and np.array_equal(v, jb[name][k]), (name, k)
+        else:
+            assert x == jb[name], name
+
+
+@pytest.mark.parametrize("mode", ["elim", "occ"])
+def test_durable_journal_on_card_equals_cpu(cuda, tmp_path, mode):
+    """The same rounds through ``DurableABTree`` on the card and on the CPU
+    write the same journal (deltas and a pool growth included); ``recover``
+    on the card equals ``recover(device="cpu")`` state for state, and the
+    recovered items equal the oracle's."""
+    from repro_torch.core import DurableABTree, recover
+    from repro_torch.interop import state_to_numpy
+
+    cfg = TreeConfig(capacity=256, b=8, a=2, max_height=12)
+    rounds = _durable_rounds(10, seed=5, key_range=4096)
+    dirs = {dev: str(tmp_path / dev) for dev in ("cuda", "cpu")}
+    oracle = DictOracle()
+    for dev, d in dirs.items():
+        t = DurableABTree(d, cfg, mode=mode, snapshot_every=3, full_snapshot_every=2, device=dev)
+        for ops, keys, vals in rounds:
+            t.apply_round(ops, keys, vals)
+            if dev == "cuda":
+                oracle.apply_round(ops.tolist(), keys.tolist(), vals.tolist())
+        t.close()
+    assert t.tree.cfg.capacity > cfg.capacity  # the pool grew
+    _same_journal(dirs["cuda"], dirs["cpu"])
+    on_card, on_cpu = recover(dirs["cuda"]), recover(dirs["cuda"], device="cpu")
+    assert on_card.tree.stacked.keys.is_cuda
+    a, b = state_to_numpy(on_card.tree.stacked), state_to_numpy(on_cpu.tree.stacked)
+    for k in a:
+        if k == "stats":
+            continue
+        assert np.array_equal(a[k], b[k]), k
+    assert on_card.tree.items() == oracle.items()
+    check_invariants(on_card.tree.state, on_card.tree.cfg)
+
+
+def test_durable_segment_capture_copies_only_dirty_rows(cuda, tmp_path, monkeypatch):
+    """A segment commit copies to the host only the rows it writes, and
+    the whole pool only for a snapshot."""
+    import os
+
+    from repro_torch.core import DurableABTree, durable
+
+    copied = []
+    real = durable._to_host
+
+    def spy(t):
+        copied.append(tuple(t.shape))
+        return real(t)
+
+    cfg = TreeConfig(capacity=1024, b=8, a=2, max_height=12)
+    t = DurableABTree(str(tmp_path / "j"), cfg, snapshot_every=1000, device="cuda")
+    rounds = _durable_rounds(3, seed=9)
+    t.apply_round(*rounds[0])
+    monkeypatch.setattr(durable, "_to_host", spy)
+    t.apply_round(*rounds[1])
+    seg = sorted(f for f in os.listdir(t.dir) if "_segment_" in f)[-1]
+    with np.load(os.path.join(t.dir, seg)) as z:
+        n = z["node_ids"].size
+    # one copy a persisted field, each of the segment's rows only
+    assert [s[0] for s in copied] == [n] * 5 and n < cfg.capacity // 4
+    copied.clear()
+    t._force_snapshot.add(t._uids[0])
+    t.apply_round(*rounds[2])
+    assert [s[0] for s in copied] == [cfg.capacity + 1] * 5
+    t.close()

@@ -143,13 +143,28 @@ def test_session_forest_splits_as_ids_pile_up():
     assert t.tree.n_shards > 2 and t.tree.metrics.value("shard_splits") > 0
 
 
-@pytest.mark.parametrize("kw,match", [
-    pytest.param(dict(durable_dir="x"), "item 4", id="kw2-item 4"),  # the id it had beside occ, shards
-    pytest.param(dict(faults=object()), "item 4", id="faults-item 4"),
-])
-def test_unported_index_knobs_name_the_roadmap_item(kw, match):
-    with pytest.raises(NotImplementedError, match=match):
-        pages.PrefixIndex(device="cpu", **kw)
+def test_durable_session_index_warm_restart_equals_jax(tmp_path):
+    """``tests/test_durable.py``'s warm restart through both packages: a
+    durable two-shard ``SessionIndex`` publishes and sweeps, and a second
+    index on the same directory recovers it (shard count from the
+    manifest) with the same lookups and journal."""
+    from test_torch_durable import assert_same_journal
+
+    dj, dt = str(tmp_path / "jax"), str(tmp_path / "port")
+    kw = dict(mode="elim", shards=2, key_space=(0, 256))
+    j = jpages.SessionIndex(durable_dir=dj, **kw)
+    t = pages.SessionIndex(durable_dir=dt, device="cpu", **kw)
+    for idx in (j, t):
+        idx.publish_batch(list(range(100, 140)), list(range(40)))
+    assert t.evict_range(100, 120, cap=8) == j.evict_range(100, 120, cap=8) == list(range(20))
+    assert_same_journal(dj, dt)
+    j2 = jpages.SessionIndex(durable_dir=dj, **kw)
+    t2 = pages.SessionIndex(durable_dir=dt, device="cpu", **kw)
+    assert t2.lookup_batch([119, 120, 139]) == j2.lookup_batch([119, 120, 139]) == [None, 20, 39]
+    assert t2.tree.n_shards == 2 and t2.tree.items() == j2.tree.items()
+    t2.close()
+    with pytest.raises(ValueError, match="journaled in 'elim' mode"):
+        pages.SessionIndex(durable_dir=dt, device="cpu", **{**kw, "mode": "occ"})
 
 
 def _requests(n, seed):
@@ -224,6 +239,79 @@ def test_pipelined_overlap_is_recorded(engines):
         assert h["count"] == teng.metrics.value("ticks") and h["max"] > 0.0
     else:
         assert h["count"] == 0
+
+
+@pytest.fixture(scope="module")
+def durable_engines(tmp_path_factory):
+    """``tests/test_serve_pipeline.py``'s durable engine through both
+    packages: pipelined ticks, two-shard journaled indexes, groups of four
+    rounds committed on the background thread; then a warm restart of
+    each on its own directory."""
+    base = tmp_path_factory.mktemp("durable-engine")
+    jcfg, tcfg = JModelConfig(**TINY), ModelConfig(**TINY)
+    knobs = dict(pipelined=True, index_shards=2, group_commit_every=4,
+                 group_commit_max_wait_s=1e9, **ENGINE)
+    out = []
+    for restart in (False, True):
+        jeng = jengine.ServeEngine(jcfg, index_durable_dir=str(base / "jax"), **knobs)
+        params = params_from_numpy(jax.tree.map(np.asarray, jeng.params))
+        teng = ServeEngine(tcfg, index_durable_dir=str(base / "port"), device="cpu",
+                           params=params, **knobs)
+        for eng, req in ((jeng, jengine.Request), (teng, Request)):
+            for rid, prompt, max_new in _requests(3 if restart else 5, seed=7 if restart else 3):
+                eng.submit(req(rid=rid, prompt=prompt, max_new=max_new))
+            eng.run_until_done(max_ticks=200)
+        out.append((jeng, teng))
+        teng.close()
+    return base, out
+
+
+def _by_kind(recorder):
+    """A recorder's history as one list a record kind, ``seq`` dropped: the
+    async commit thread pushes its commit markers while later rounds run, so
+    where they fall among the round records (and every ``seq`` after them)
+    depends on thread timing, in either package; each kind's own order does
+    not."""
+    out = {}
+    for line in recorder.dump_records():
+        rec = json.loads(line)
+        rec.pop("seq")
+        out.setdefault(rec["kind"], []).append(rec)
+    return out
+
+
+def _durability(eng):
+    dur = eng.stats()["durability"]
+    for name in ("prefix", "sessions"):
+        dur[name] = {k: v for k, v in dur[name].items() if k != "pending_age_s"}
+    return dur
+
+
+def test_durable_engine_equals_jax(durable_engines):
+    """Tokens, index histories, ``stats()["durability"]`` and journals equal
+    JAX's, before and after the warm restart; the exit drain leaves no
+    group pending and the session journal batched its rounds."""
+    from test_torch_durable import assert_same_journal
+
+    base, runs = durable_engines
+    for jeng, teng in runs:
+        assert {r.rid: r.out for r in teng.done} == {r.rid: r.out for r in jeng.done}
+        for name in ("index", "sessions"):
+            t, j = getattr(teng, name).tree, getattr(jeng, name).tree
+            assert t.items() == j.items() and t.n_shards == j.n_shards, name
+            records = _by_kind(t.recorder)
+            assert records == _by_kind(j.recorder), name
+            assert records["commit"] and records["round"]
+        dur = _durability(teng)
+        assert dur == _durability(jeng)
+        assert not dur["degraded"]
+        for name in ("prefix", "sessions"):
+            assert dur[name]["group_commit_every"] == 4 and dur[name]["pending_rounds"] == 0
+        assert dur["sessions"]["rounds_per_commit"]["max"] > 1
+        assert teng.sessions.tree.commit_async  # the default when grouping
+    assert runs[1][1].index.tree.forensics_records()  # the restart recovered a sidecar
+    for sub in ("prefix", "sessions"):
+        assert_same_journal(str(base / "jax" / sub), str(base / "port" / sub), async_rounds=True)
 
 
 def test_engine_refuses_without_a_card(monkeypatch):
