@@ -55,15 +55,16 @@ csrc`` (one ``nvcc`` per source, in parallel, into ``build/``), then:
    and to ``recover(device="cpu")`` of a copy; groups of 8 rounds
    committed on the background thread; a seeded ``FaultPlan`` (two
    ``eio`` fsyncs retried, a torn segment truncated and quarantined at
-   recovery); occ (the paper's p-OCC) on a tree of the same keys, Zipf and
-   uniform rounds beside uniform elim rounds; the sharded indexes
+   recovery); occ (the paper's p-OCC) on a tree of 2.5·10^5 keys, Zipf
+   and uniform rounds beside uniform elim rounds; the sharded indexes
    journaled, closed and warm-restarted against their oracles;
 3. drives the serving path: ``ServeEngine`` on qwen2-0.5b at its full
    width and depth (24 layers, bf16 compute over fp32 weights made from the
-   seed), max_batch 8, s_max 1024, 32 KV pages; 8 requests of 512-token
-   prompts (two full prefix blocks), 70% of them one hot prompt, 32 new
-   tokens each; run serial, then pipelined, with the launch counts zeroed
-   before the serial run and read after the pipelined one.  Both runs must
+   seed), max_batch 8, s_max 1024, 32 KV pages; 4 requests of 512-token
+   prompts (two full prefix blocks), each the hot prompt at 70% (two of
+   the four), 32 new tokens each; run serial, then pipelined, with the
+   launch counts zeroed before the serial run and read after the
+   pipelined one.  Both runs must
    give every request 32 tokens and the same tokens; both indexes must pass
    ``check_invariants`` and hold what a ``DictOracle`` fed the same
    publish / evict / sweep calls holds (every lookup and sweep is checked
@@ -78,7 +79,36 @@ csrc`` (one ``nvcc`` per source, in parallel, into ``build/``), then:
    for the device's busy time; 8 steps at a constant 1e-3 on one fixed
    batch, whose loss must fall; and a crash at step 6, a restart and a
    resume from step 4 to 12 on the reduced 2-layer config;
-5. replays one main-path call of each kernel: kernel and plain PyTorch
+5. drives the LM family and the rest of the training stack, the launch
+   counts zeroed before and read after, and the card's peak memory printed
+   for each part: (a) ``ServeEngine`` on granite-moe-3b-a800m at its
+   published width and depth (32 layers, 40 experts top-8, bf16 compute
+   over fp32 weights from the seed), max_batch 8, s_max 512, 32 pages; 4
+   requests of 264-token prompts, 3 of them one hot prompt (its first
+   256-token block is hit), 8 new tokens each, serial; every request gets
+   its tokens, the indexes pass ``check_invariants`` and equal their
+   ``DictOracle``, B7 runs once a layer a model step, one decode step run
+   twice from the same cache and tokens gives bit-equal logits (the MoE
+   scatter back is deterministic), and the step's wall time is set against
+   its CUDA-graph replay; (b) the ``Trainer`` that ``python -m
+   repro_torch.launch.train --arch granite-moe-3b-a800m --batch 2 --seq
+   1024`` builds, its train step driven directly: 2 warm-up and 5 timed
+   steps (B6 once a layer a forward, none in the backward), a profiled
+   step, then 6 steps at a constant 1e-3 on one fixed batch, whose loss
+   must fall; (c) deepseek-v3-671b reduced (a dense and an MoE layer, the
+   shared expert, MLA, remat "dots"): one train step's loss and grads
+   finite, 8 decode steps over the latent cache with finite logits; (d)
+   ``embed_elim_update`` against ``embed_occ_update`` on qwen2-0.5b's
+   embedding table with 8 x 1,024 ids of the training stream: both within
+   each touched row's summation-order bound of a float64 sum, every other
+   row unchanged, the write statistics exact; (e) ``DedupIndex`` in elim
+   mode: 48 batches of 4,096 documents (the first 512), 30% repeating an
+   earlier batch's (Zipf(1.1) over the history) and 5% one of the same
+   batch, every keep list equal to a Python set's and the tree sound at
+   the end; (f) ``quantize_int8`` on 2^26 values bit-equal to the CPU's,
+   its round trip within max|x|/127, and 50 steps of ``_ef_quantize``
+   within max|g| of 50·g;
+6. replays one main-path call of each kernel: kernel and plain PyTorch
    version on the same CUDA tensors must agree (the tree kernels and the
    leaf probe bit for bit; the two attention kernels within 2 ulps of
    their dtype at the output's largest magnitude, on the path's tensors and
@@ -99,8 +129,10 @@ csrc`` (one ``nvcc`` per source, in parallel, into ``build/``), then:
    bit-equal to the plain version and timed; flash attention also with
    the count of HGMMA (wgmma) instructions in its built library, which
    must not be 0, and decode attention with step 1's count and the
-   clusters of each size the card holds at once;
-6. prints ``{"ok": true, "device": {...}}`` as its last line.
+   clusters of each size the card holds at once; flash attention (B6) and
+   decode attention (B7) also on step 5's granite calls (group 3), rows of
+   their own in the ``kernels`` line;
+7. prints ``{"ok": true, "device": {...}}`` as its last line.
 
 Any failed check raises, so the script exits non-zero.  Without a CUDA card,
 or without the repository's ``src/repro_torch`` beside it, it exits 2 and
@@ -109,6 +141,7 @@ prints no result.
 from __future__ import annotations
 
 import collections
+import gc
 import json
 import shutil
 import subprocess
@@ -162,7 +195,7 @@ DURABLE_GROUP, DURABLE_GROUP_ROUNDS = 8, 10
 # ~0.1 s rounds after two of them
 DURABLE_GROUP_MAX_WAIT_S = 10.0
 DURABLE_FAULT_ROUNDS = 7  # eio at the 2nd and 4th commit, a torn segment at the 6th
-DURABLE_OCC_PREFILL = KEY_RANGE // 2  # the first cut to make if the phase runs long
+DURABLE_OCC_PREFILL = KEY_RANGE // 8  # cut from KEY_RANGE // 2 to keep the script's time in bounds
 DURABLE_OCC_ZIPF, DURABLE_UNIFORM = 1, 3
 DURABLE_INDEX_GROUP = 4
 COMMIT_HISTS = ("commit_capture_s", "journal_flush_s", "manifest_commit_s", "commit_latency_s",
@@ -172,7 +205,7 @@ SERVE_KERNELS = TREE_KERNELS + ("decode_attention",)
 # serve phase: qwen2-0.5b at full width and depth
 SERVE_ARCH = "qwen2-0.5b"
 SERVE_ENGINE = dict(max_batch=8, s_max=1024, n_pages=32)
-SERVE_REQUESTS, SERVE_PROMPT, SERVE_MAX_NEW, SERVE_HOT_FRAC = 8, 512, 32, 0.7
+SERVE_REQUESTS, SERVE_PROMPT, SERVE_MAX_NEW, SERVE_HOT_FRAC = 4, 512, 32, 0.7  # 2 of them hot
 TRACED_REQUESTS, TRACED_MAX_NEW = 2, 8
 STEP_TIMING_STEPS = 20
 # train phase: the Trainer on qwen2-0.5b at full width and depth, as
@@ -192,6 +225,26 @@ DECODE_ULPS = 2
 # H100 SXM peak for the operands' type (dense): bf16 on the tensor cores,
 # f32 outside them
 OPS_PER_S = {"torch.bfloat16": 989e12, "torch.float32": 67e12}
+# LM-family and training-stack phase: granite-moe-3b-a800m at its published
+# width and depth, served (LM_HOT: 3 of 4 requests one hot prompt, whose
+# first 256-token block is hit) and trained by the launcher's Trainer
+LM_ARCH = "granite-moe-3b-a800m"
+LM_SERVE_ENGINE = dict(max_batch=8, s_max=512, n_pages=32)
+LM_PROMPT, LM_MAX_NEW, LM_HOT = 264, 8, (True, True, False, True)
+LM_TRAIN_BATCH, LM_TRAIN_SEQ = 2, 1024
+LM_WARMUP_STEPS, LM_TIMED_STEPS = 2, 5
+LM_FALL_STEPS, LM_FALL_LR = 6, 1e-3  # constant_lr on one fixed batch
+# deepseek-v3-671b reduced (its 671 B parameters need the parallel layer)
+MLA_ARCH, MLA_BATCH, MLA_SEQ, MLA_DECODE_STEPS = "deepseek-v3-671b", 2, 64, 8
+# EmbedElim on qwen2-0.5b's embedding table, ids from the training stream
+EMBED_ARCH, EMBED_BATCH, EMBED_SEQ, EMBED_LR = "qwen2-0.5b", 8, 1024, 1e-2
+# DedupIndex: batches of documents from the seeded stream; the first batch
+# goes into an empty tree, where the retry passes grow with the round's
+# width (about one a 6 lanes), so it is narrow, as the tree path's prefill
+DEDUP_BATCHES, DEDUP_WIDTH, DEDUP_FIRST_WIDTH, DEDUP_CAPACITY = 48, 4096, 512, 1 << 16
+DEDUP_HISTORY_FRAC, DEDUP_INBATCH_FRAC, DEDUP_ZIPF = 0.30, 0.05, 1.1
+DEDUP_MIN_TOKENS, DEDUP_MAX_TOKENS = 64, 512
+QUANT_N, EF_N, EF_STEPS = 1 << 26, 1 << 20, 50
 
 
 def log(msg: str) -> None:
@@ -1139,14 +1192,17 @@ class IndexAudit:
 
 
 def serve_run(torch, core, serve, cfg, params, device, *, pipelined: bool, n_requests: int,
-              max_new: int, tracer=None, on_stream_sync: bool = False):
-    """One engine run over the first ``n_requests`` requests.  With
-    ``on_stream_sync`` the serial run also waits for the model stream at the
-    end of each admission, so the tick splits into admission (index rounds
-    and prefill) and decode times; the tick's total is unchanged, since the
-    decode fence waits for the same work."""
+              max_new: int, tracer=None, on_stream_sync: bool = False, reqs=None,
+              engine=SERVE_ENGINE):
+    """One engine run over the first ``n_requests`` requests (of
+    ``serve_requests``, or of ``reqs``: (rid, prompt, is_hot) triples) on
+    an engine built with ``engine``.  With ``on_stream_sync`` the serial run
+    also waits for the model stream at the end of each admission, so the
+    tick splits into admission (index rounds and prefill) and decode times;
+    the tick's total is unchanged, since the decode fence waits for the same
+    work."""
     eng = serve.ServeEngine(cfg, pipelined=pipelined, params=params, seed=SEED, device=device,
-                            **SERVE_ENGINE)
+                            **engine)
     sync = torch.cuda.synchronize if device.type == "cuda" else (lambda: None)
     audit = IndexAudit(eng, core)
     timing = {"admit_s": 0.0, "retire_s": 0.0}
@@ -1168,7 +1224,7 @@ def serve_run(torch, core, serve, cfg, params, device, *, pipelined: bool, n_req
         eng._admit, eng._retire = timed_admit, timed_retire
     if tracer is not None:
         eng.tracer = tracer
-    reqs = serve_requests(cfg.vocab)[:n_requests]
+    reqs = (serve_requests(cfg.vocab) if reqs is None else reqs)[:n_requests]
     for rid, prompt, _ in reqs:
         eng.submit(serve.Request(rid=rid, prompt=prompt, max_new=max_new))
     sync()
@@ -1420,7 +1476,7 @@ def run_train_path(torch, lib, device):
         out = trainer.run()
         run_s = time.perf_counter() - t0
         launches = {n: lib.counter(n).launches for n in lib.SOURCES}
-        recorded = flash.calls[-1]
+        recorded = detached(flash.calls[-1])
         flash.calls = None
         peak = int(torch.cuda.max_memory_allocated(device)) if on_card else None
         log(f"train: {TRAIN_STEPS} steps in {run_s:.1f}s")
@@ -1517,6 +1573,475 @@ def run_train_path(torch, lib, device):
         "launches": launches,
     }
     return summary, recorded
+
+
+# ----------------------------------------------------------------------------
+# LM-family and training-stack phase
+# ----------------------------------------------------------------------------
+
+
+def lm_requests(vocab: int):
+    """(rid, prompt, is_hot) from the seed: LM_PROMPT-token prompts, those
+    flagged in LM_HOT one hot prompt (its first PAGE block is hit)."""
+    rng = np.random.default_rng(SEED)
+    hot = rng.integers(0, vocab, LM_PROMPT).tolist()
+    return [(rid, list(hot) if is_hot else rng.integers(0, vocab, LM_PROMPT).tolist(), is_hot)
+            for rid, is_hot in enumerate(LM_HOT)]
+
+
+def detached(call):
+    """A recorded attention call with its tensors cut from the autograd
+    graph: the graph's leaves share the params' storage, which would
+    otherwise outlive the trainer."""
+    return tuple(x.detach() if hasattr(x, "detach") else x for x in call)
+
+
+def launch_snapshot(lib) -> dict:
+    return {n: lib.counter(n).launches for n in lib.SOURCES}
+
+
+def launch_delta(lib, before: dict) -> dict:
+    return {n: lib.counter(n).launches - before[n] for n in lib.SOURCES}
+
+
+def peak_bytes(torch, device):
+    return int(torch.cuda.max_memory_allocated(device)) if device.type == "cuda" else None
+
+
+def reset_peak(torch, device) -> None:
+    """Free what the previous part left (its engine's admission hooks make a
+    reference cycle that only the collector breaks), then restart the peak."""
+    gc.collect()
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(device)
+
+
+def run_lm_serve(torch, core, lib, device, cfg):
+    """granite-moe-3b-a800m served at its published width and depth: one
+    serial run of the LM_HOT requests, checked as the serve phase checks
+    its runs; B7 launched once a layer a model step; one decode step run
+    twice from the same cache and tokens gives bit-equal logits; the step's
+    wall time against its CUDA-graph replay.  Returns the summary and the
+    run's last B7 call."""
+    import repro_torch.serve as serve
+    from repro_torch.models import backbone
+    from repro_torch.models.params import count_params, init_params
+
+    on_card = device.type == "cuda"
+    attn = lib.counter("decode_attention")
+    reset_peak(torch, device)
+    t0 = time.perf_counter()
+    params = init_params(backbone.model_spec(cfg), device, SEED)
+    if on_card:
+        torch.cuda.synchronize(device)
+    init_s = time.perf_counter() - t0
+    steps = [0]
+    forward_decode = backbone.forward_decode
+
+    def counted(*args, **kw):
+        steps[0] += 1
+        return forward_decode(*args, **kw)
+
+    reqs = lm_requests(cfg.vocab)
+    before = launch_snapshot(lib)
+    attn.calls = collections.deque(maxlen=1)
+    backbone.forward_decode = counted
+    try:
+        eng, run, _ = serve_run(torch, core, serve, cfg, params, device, pipelined=False,
+                                n_requests=len(reqs), max_new=LM_MAX_NEW, on_stream_sync=True,
+                                reqs=reqs, engine=LM_SERVE_ENGINE)
+    finally:
+        backbone.forward_decode = forward_decode
+    launches = launch_delta(lib, before)
+    recorded = attn.calls[-1]
+    attn.calls = None
+    del params  # the engine keeps its compute-dtype copies
+    log(f"lm serve: {run['wall_s']:.1f}s, {steps[0]} model steps")
+    if launches["decode_attention"] != cfg.n_layers * steps[0]:
+        raise AssertionError(f"lm serve: decode_attention launched {launches['decode_attention']} "
+                             f"times in {steps[0]} model steps, not {cfg.n_layers} a step")
+    if run["cache_hit_blocks"] <= 0:
+        raise AssertionError("lm serve: the prefix cache was never hit")
+
+    # the same decode step twice from the same cache and tokens
+    tok = torch.as_tensor(np.random.default_rng(SEED).integers(0, cfg.vocab, eng.max_batch),
+                          dtype=torch.int32, device=device)
+    pos = LM_PROMPT + LM_MAX_NEW
+    b7 = attn.launches
+    first, _ = backbone.forward_decode(eng.params, eng.cache, tok, pos, cfg)
+    per_step = attn.launches - b7
+    second, _ = backbone.forward_decode(eng.params, eng.cache, tok, pos, cfg)
+    if per_step != cfg.n_layers:
+        raise AssertionError(f"lm serve: one decode step launched decode_attention {per_step} "
+                             f"times, not {cfg.n_layers}")
+    if not bool(torch.isfinite(first).all()):
+        raise AssertionError("lm serve: a decode step gave non-finite logits")
+    if not torch.equal(first, second):
+        raise AssertionError(f"lm serve: the same decode step gave other logits (max |diff| "
+                             f"{float((first - second).abs().max())})")
+    step = decode_step_timing(torch, backbone, eng) if on_card else None
+    peak = peak_bytes(torch, device)
+    del eng, first, second
+    summary = {
+        "config": {"arch": LM_ARCH, "layers": cfg.n_layers, "d_model": cfg.d_model,
+                   "heads": cfg.n_heads, "kv_heads": cfg.n_kv, "experts": cfg.n_experts,
+                   "top_k": cfg.top_k, "d_ff_expert": cfg.d_ff_expert, "vocab": cfg.vocab,
+                   "dtype": cfg.dtype, "params": count_params(backbone.model_spec(cfg)),
+                   **LM_SERVE_ENGINE, "requests": len(reqs), "prompt": LM_PROMPT,
+                   "hot": list(LM_HOT), "max_new": LM_MAX_NEW, "seed": SEED},
+        "param_init_s": init_s,
+        "serial": run,
+        "model_steps": steps[0],
+        "decode_attention_per_step": per_step,
+        "decode_step_repeat_bit_equal": True,
+        "decode_step": step,
+        "launches": launches,
+        "max_memory_allocated": peak,
+    }
+    return summary, recorded
+
+
+def run_lm_train(torch, lib, device):
+    """granite-moe-3b-a800m trained at its published width and depth: the
+    Trainer that ``python -m repro_torch.launch.train --arch
+    granite-moe-3b-a800m --batch 2 --seq 1024`` builds, its train step
+    driven directly (``Trainer.run`` would save ~54 GB of fp32 params and
+    AdamW state at its end): LM_WARMUP_STEPS + LM_TIMED_STEPS steps, B6
+    once a layer a step (none in the backward), one profiled step, then
+    LM_FALL_STEPS steps at a constant LM_FALL_LR on one fixed batch, whose
+    loss must fall.  Returns the summary and the last timed B6 call."""
+    import tempfile
+
+    from repro_torch.data import make_data_iter
+    from repro_torch.launch import train as launch
+    from repro_torch.optim import constant_lr
+    from repro_torch.train import make_train_step
+
+    flash = lib.counter("flash_attention")
+    on_card = device.type == "cuda"
+    sync = (lambda: torch.cuda.synchronize(device)) if on_card else (lambda: None)
+    to_dev = lambda batch: {k: torch.from_numpy(x).to(device) for k, x in batch.items()}
+    with tempfile.TemporaryDirectory() as ckpt:
+        argv = ["--arch", LM_ARCH, "--batch", str(LM_TRAIN_BATCH), "--seq", str(LM_TRAIN_SEQ),
+                "--ckpt", ckpt]
+        reset_peak(torch, device)
+        t0 = time.perf_counter()
+        trainer = launch.build_trainer(launch.parse_args(argv), device)
+        sync()
+        init_s = time.perf_counter() - t0
+        cfg = trainer.cfg
+        after_init = peak_bytes(torch, device)
+        it = make_data_iter(cfg, LM_TRAIN_BATCH, LM_TRAIN_SEQ)
+        before = launch_snapshot(lib)
+        flash.calls = collections.deque(maxlen=1)
+        times, losses = [], []
+        for i in range(LM_WARMUP_STEPS + LM_TIMED_STEPS):
+            batch = to_dev(next(it))
+            sync()
+            b6 = flash.launches
+            t0 = time.perf_counter()
+            out = trainer.step_fn(trainer.params, trainer.opt, batch, i)
+            loss = float(out.metrics["loss"])  # waits for the step
+            dt = time.perf_counter() - t0
+            trainer.params, trainer.opt = out.params, out.opt_state
+            if flash.launches - b6 != cfg.n_layers:
+                raise AssertionError(f"lm train: step {i} launched flash_attention "
+                                     f"{flash.launches - b6} times, not {cfg.n_layers} a forward")
+            if not (np.isfinite(loss) and np.isfinite(float(out.metrics["grad_norm"]))):
+                raise AssertionError(f"lm train: step {i}: loss {loss}, grad norm "
+                                     f"{float(out.metrics['grad_norm'])}")
+            losses.append(loss)
+            if i >= LM_WARMUP_STEPS:
+                times.append(dt)
+        launches = launch_delta(lib, before)
+        recorded = detached(flash.calls[-1])
+        flash.calls = None
+        peak = peak_bytes(torch, device)
+        log(f"lm train: p50 {np.percentile(times, 50) * 1e3:.1f} ms/step, peak "
+            f"{(peak or 0) / 1e9:.1f} GB")
+
+        batch = to_dev(next(it))
+        sync()
+        activities = [torch.profiler.ProfilerActivity.CPU]
+        if on_card:
+            activities.append(torch.profiler.ProfilerActivity.CUDA)
+        with torch.profiler.profile(activities=activities) as prof:
+            t0 = time.perf_counter()
+            out = trainer.step_fn(trainer.params, trainer.opt, batch, len(losses))
+            float(out.metrics["loss"])
+            profiled_wall_ms = (time.perf_counter() - t0) * 1e3
+        busy_ms, n_events, top_events = device_busy_ms(torch, prof)
+        del prof
+
+        fall_step = make_train_step(cfg, lr_peak=LM_FALL_LR, schedule=constant_lr, donate=True)
+        fixed = to_dev(next(make_data_iter(cfg, LM_TRAIN_BATCH, LM_TRAIN_SEQ, seed=SEED + 1)))
+        fall = []
+        for i in range(LM_FALL_STEPS):
+            out = fall_step(trainer.params, trainer.opt, fixed, i)
+            fall.append(float(out.metrics["loss"]))
+        del trainer, out, batch, fixed
+    if on_card:
+        torch.cuda.empty_cache()
+    if not all(np.isfinite(fall)) or not fall[-1] < fall[0]:
+        raise AssertionError(f"lm train: the loss did not fall on a fixed batch: {fall}")
+    p50 = float(np.percentile(times, 50))
+    summary = {
+        "config": {"arch": LM_ARCH, "layers": cfg.n_layers, "d_model": cfg.d_model,
+                   "experts": cfg.n_experts, "top_k": cfg.top_k, "remat": cfg.remat,
+                   "batch": LM_TRAIN_BATCH, "seq": LM_TRAIN_SEQ,
+                   "schedule": "warmup_cosine, peak 3e-4 (the launcher's)", "seed": SEED},
+        "init_s": init_s,
+        "max_memory_after_init": after_init,
+        "losses": losses,
+        "sec_per_step": times,
+        "sec_per_step_p50": p50,
+        "tokens_per_s": LM_TRAIN_BATCH * LM_TRAIN_SEQ * len(times) / float(np.sum(times)),
+        "max_memory_allocated": peak,
+        "launches": launches,
+        "profiled_step": {"wall_ms": profiled_wall_ms, "device_busy_ms": busy_ms,
+                          "device_events": n_events, "top_device_ms": top_events,
+                          "idle_share_of_profiled_step": 1.0 - busy_ms / profiled_wall_ms,
+                          "idle_share_vs_p50_step": 1.0 - busy_ms / (p50 * 1e3)},
+        "loss_fall": {"steps": LM_FALL_STEPS, "lr": LM_FALL_LR, "losses": fall},
+    }
+    return summary, recorded
+
+
+def run_mla_path(torch, device):
+    """reduced deepseek-v3-671b on the card (2 layers, a dense one first,
+    the shared expert, MLA, remat="dots", bf16 compute): one train step's
+    loss and every grad finite, then MLA_DECODE_STEPS decode steps over the
+    latent cache with finite logits."""
+    from repro_torch.configs import get_config
+    from repro_torch.data import make_data_iter
+    from repro_torch.models import backbone, reduced
+    from repro_torch.models.params import init_params
+    from repro_torch.optim.adamw import tree_leaves, tree_map
+
+    cfg = reduced(get_config(MLA_ARCH), dtype="bfloat16")
+    params = init_params(backbone.model_spec(cfg), device, SEED)
+    batch = {k: torch.from_numpy(x).to(device)
+             for k, x in next(make_data_iter(cfg, MLA_BATCH, MLA_SEQ, seed=SEED)).items()}
+    live = tree_map(lambda p: p.detach().requires_grad_(), params)
+    loss, _ = backbone.loss_fn(live, batch, cfg)
+    grads = torch.autograd.grad(loss, tree_leaves(live))
+    if not bool(torch.isfinite(loss)) or not all(bool(torch.isfinite(g).all()) for g in grads):
+        raise AssertionError(f"mla: loss {float(loss)} or a grad is not finite")
+    cache = backbone.init_cache(cfg, MLA_BATCH, MLA_SEQ, device)
+    if cache["layers"].v is not None or cache["dense_layers"].v is not None:
+        raise AssertionError("mla: the latent cache holds a v")
+    cp = backbone.compute_params(params, cfg)
+    tok = batch["tokens"][:, 0]
+    finite = []
+    for pos in range(MLA_DECODE_STEPS):
+        logits, cache = backbone.forward_decode(cp, cache, tok, pos, cfg)
+        finite.append(bool(torch.isfinite(logits).all()))
+        tok = torch.argmax(logits, -1)
+    if not all(finite):
+        raise AssertionError(f"mla: decode logits not finite: {finite}")
+    return {"config": {"arch": MLA_ARCH, "reduced": True, "layers": cfg.n_layers,
+                       "first_k_dense": cfg.first_k_dense, "n_shared": cfg.n_shared,
+                       "attn": cfg.attn, "remat": cfg.remat, "dtype": cfg.dtype,
+                       "batch": MLA_BATCH, "seq": MLA_SEQ},
+            "loss": float(loss.detach()), "grad_leaves": len(grads),
+            "decode_steps": MLA_DECODE_STEPS,
+            "latent_cache": list(cache["layers"].k.shape)}
+
+
+def run_embed_path(torch, device):
+    """``embed_elim_update`` against ``embed_occ_update`` on qwen2-0.5b's
+    embedding table with a Zipf(1.3) batch of the training stream: both
+    tables within each touched row's summation-order bound of a float64 sum
+    of the same updates, every other row unchanged, the statistics exact."""
+    from repro_torch.configs import get_config
+    from repro_torch.data import make_data_iter
+    from repro_torch.optim.sparse import embed_elim_update, embed_occ_update
+
+    cfg = get_config(EMBED_ARCH)
+    gen = torch.Generator(device=device).manual_seed(SEED)
+    table = torch.randn((cfg.vocab, cfg.d_model), generator=gen, device=device) * cfg.d_model ** -0.5
+    ids_np = next(make_data_iter(cfg, EMBED_BATCH, EMBED_SEQ, seed=SEED))["tokens"].reshape(-1)
+    ids = torch.from_numpy(ids_np).to(device)
+    grads = torch.randn((ids.numel(), cfg.d_model), generator=gen, device=device)
+    new, stats = embed_elim_update(table, ids, grads, EMBED_LR)
+    occ = embed_occ_update(table, ids, grads, EMBED_LR)
+    uniq, inv, count = np.unique(ids_np, return_inverse=True, return_counts=True)
+    rows = torch.from_numpy(uniq).to(device).long()
+    t64 = table[rows].double().cpu().numpy()
+    # the rate as the f32 products see it
+    g64 = float(np.float32(EMBED_LR)) * grads.double().cpu().numpy()
+    want = t64.copy()
+    np.add.at(want, inv, -g64)
+    mag = np.zeros_like(t64)
+    np.add.at(mag, inv, np.abs(g64))
+    bound = (count[:, None] + 1) * 2.0**-24 * (mag + np.abs(t64))
+    untouched = torch.ones(cfg.vocab, dtype=torch.bool, device=device)
+    untouched[rows] = False
+    worst = {}
+    for name, got in (("elim", new), ("occ", occ)):
+        err = np.abs(got[rows].double().cpu().numpy() - want)
+        if not np.all(err <= bound):
+            raise AssertionError(f"embed {name}: a row is off its float64 sum by more than its "
+                                 f"bound (max err / bound {float(np.max(err / bound))})")
+        if not torch.equal(got[untouched], table[untouched]):
+            raise AssertionError(f"embed {name}: a row no id names changed")
+        worst[name] = float(np.max(err / bound))
+    n_unique, t = int(uniq.size), int(ids_np.size)
+    if (int(stats.writes_occ), int(stats.writes_elim), int(stats.eliminated)) != \
+            (t, n_unique, t - n_unique):
+        raise AssertionError(f"embed: stats {stats} for {t} ids, {n_unique} unique")
+    elim_ms = time_ms(torch, lambda: embed_elim_update(table, ids, grads, EMBED_LR), 20)
+    occ_ms = time_ms(torch, lambda: embed_occ_update(table, ids, grads, EMBED_LR), 20)
+    return {"table": [cfg.vocab, cfg.d_model], "ids": t, "unique": n_unique,
+            "hottest_id_count": int(count.max()), "lr": EMBED_LR,
+            "writes_occ": t, "writes_elim": n_unique, "eliminated": t - n_unique,
+            "write_reduction": t / n_unique, "max_err_over_bound": worst,
+            "elim_ms": elim_ms, "occ_ms": occ_ms}
+
+
+def dedup_batch(rng, width: int, history: list, vocab: int, zipf_keys) -> list:
+    """``width`` documents: DEDUP_HISTORY_FRAC repeat an earlier batch's
+    (Zipf(DEDUP_ZIPF) over the history, the first documents hottest),
+    DEDUP_INBATCH_FRAC an earlier one of this batch, the rest new ones of
+    DEDUP_MIN_TOKENS to DEDUP_MAX_TOKENS Zipf(1.3) tokens."""
+    u = rng.random(width)
+    kind = np.where(u < DEDUP_HISTORY_FRAC, 0, np.where(u < DEDUP_HISTORY_FRAC + DEDUP_INBATCH_FRAC,
+                                                        1, 2))
+    if not history:
+        kind[kind == 0] = 2
+    kind[0] = 2 if kind[0] == 1 else kind[0]
+    lengths = rng.integers(DEDUP_MIN_TOKENS, DEDUP_MAX_TOKENS + 1, int((kind == 2).sum()))
+    toks = (np.minimum(rng.zipf(1.3, int(lengths.sum())), vocab) - 1).astype(np.int32)
+    fresh = iter(np.split(toks, np.cumsum(lengths)[:-1]))
+    old = iter(zipf_keys(rng, int((kind == 0).sum()), max(len(history), 1), DEDUP_ZIPF))
+    docs = []
+    for k in kind:
+        if k == 0:
+            docs.append(history[int(next(old))])
+        elif k == 1:
+            docs.append(docs[int(rng.integers(len(docs)))])
+        else:
+            docs.append(next(fresh))
+    return docs
+
+
+def run_dedup_path(torch, core, lib, device, zipf_keys):
+    """``DedupIndex`` in elim mode on the card: DEDUP_BATCHES batches, the
+    first DEDUP_FIRST_WIDTH documents wide (it goes into an empty tree,
+    where the retry passes grow with the round's width), the rest
+    DEDUP_WIDTH; every keep list equal to a Python set fed the same stream,
+    the tree sound and holding exactly the hashes seen."""
+    from repro_torch.configs import get_config
+    from repro_torch.data import DedupIndex, content_hash
+
+    vocab = get_config(EMBED_ARCH).vocab
+    rng = np.random.default_rng(SEED)
+    idx = DedupIndex(capacity=DEDUP_CAPACITY, device=device)
+    seen, history = set(), []
+    before = launch_snapshot(lib)
+    filter_s, n_docs, gen_s = 0.0, 0, 0.0
+    for i in range(DEDUP_BATCHES):
+        t0 = time.perf_counter()
+        docs = dedup_batch(rng, DEDUP_FIRST_WIDTH if i == 0 else DEDUP_WIDTH, history, vocab,
+                           zipf_keys)
+        gen_s += time.perf_counter() - t0
+        t0 = time.perf_counter()
+        keep, stats = idx.filter_batch(docs)
+        filter_s += time.perf_counter() - t0
+        want = []
+        for n, d in enumerate(docs):
+            h = content_hash(d)
+            if h not in seen:
+                seen.add(h)
+                want.append(n)
+        if keep != want:
+            raise AssertionError(f"dedup batch {i}: keep list differs from the set's")
+        history.extend(docs)
+        n_docs += len(docs)
+    launches = launch_delta(lib, before)
+    core.check_invariants(idx.tree.state, idx.tree.cfg)
+    if set(idx.tree.items()) != seen:
+        raise AssertionError("dedup: the index does not hold exactly the hashes seen")
+    for name in ("descend_probe", "elim_combine"):
+        if launches[name] <= 0:
+            raise AssertionError(f"dedup: {name} never launched")
+    log(f"dedup: {n_docs} docs in {filter_s:.1f}s")
+    return {"batches": DEDUP_BATCHES, "width": DEDUP_WIDTH, "first_width": DEDUP_FIRST_WIDTH,
+            "history_frac": DEDUP_HISTORY_FRAC, "in_batch_frac": DEDUP_INBATCH_FRAC,
+            "docs": n_docs, "unique": len(seen), "duplicates": stats["duplicates"],
+            "rounds": stats["rounds"], "retry_passes": idx.tree.metrics.value("retry_passes"),
+            "eliminated": stats["eliminated"], "filter_s": filter_s, "docs_per_s": n_docs / filter_s,
+            "generate_s": gen_s, "launches": launches}
+
+
+def run_quant_path(torch, device):
+    """``quantize_int8`` on QUANT_N seeded f32 values: q and the scales
+    bit-equal to the port's CPU result on the same input, the round trip
+    within max|x|/127; then EF_STEPS of ``_ef_quantize`` whose applied sum
+    is within max|g| of EF_STEPS·g."""
+    from repro_torch.parallel import compress
+
+    gen = torch.Generator(device=device).manual_seed(SEED)
+    x = torch.randn(QUANT_N, generator=gen, device=device)
+    q, scale = compress.quantize_int8(x)
+    q_cpu, scale_cpu = compress.quantize_int8(x.cpu())
+    if not (torch.equal(q.cpu(), q_cpu) and torch.equal(scale.cpu(), scale_cpu)):
+        raise AssertionError("quantize_int8: the card's payload or scales differ from the CPU's")
+    err = float((compress.dequantize_int8(q, scale, x.shape, torch.float32) - x).abs().max())
+    limit = float(x.abs().max()) / 127.0
+    if err > limit:
+        raise AssertionError(f"quantize_int8: round trip off by {err} > max|x|/127 = {limit}")
+    quant_ms = time_ms(torch, lambda: compress.quantize_int8(x), 10)
+    g = torch.randn(EF_N, generator=gen, device=device) * 1e-3
+    residual, applied = torch.zeros_like(g), torch.zeros_like(g)
+    for _ in range(EF_STEPS):
+        q, scale, residual = compress._ef_quantize(g, residual)
+        applied += compress.dequantize_int8(q, scale, g.shape, g.dtype)
+    drift = float((applied - EF_STEPS * g).abs().max())
+    if drift > float(g.abs().max()):
+        raise AssertionError(f"_ef_quantize: applied sum off by {drift} > max|g|")
+    return {"n": QUANT_N, "max_abs_err": err, "limit": limit, "bit_equal_to_cpu": True,
+            "quantize_ms": quant_ms, "ef_n": EF_N, "ef_steps": EF_STEPS, "ef_drift": drift,
+            "ef_limit": float(g.abs().max())}
+
+
+def run_lm_family_path(torch, core, lib, device, zipf_keys):
+    """The LM-family and training-stack phase; its launch counts are zeroed
+    before it and read after it.  Returns the summary and the granite B6
+    and B7 calls recorded on it."""
+    from repro_torch.configs import get_config
+
+    t0 = time.perf_counter()
+    lib.reset_counts()
+    out, peaks, held = {}, {}, {}
+    on_card = device.type == "cuda"
+    reset_peak(torch, device)
+    held["serve"] = int(torch.cuda.memory_allocated(device)) if on_card else None
+    out["serve"], b7_call = run_lm_serve(torch, core, lib, device, get_config(LM_ARCH))
+    peaks["serve"] = out["serve"]["max_memory_allocated"]
+    reset_peak(torch, device)
+    held["train"] = int(torch.cuda.memory_allocated(device)) if on_card else None
+    out["train"], b6_call = run_lm_train(torch, lib, device)
+    peaks["train"] = out["train"]["max_memory_allocated"]
+    for name, fn in (("mla", lambda: run_mla_path(torch, device)),
+                     ("embed", lambda: run_embed_path(torch, device)),
+                     ("dedup", lambda: run_dedup_path(torch, core, lib, device, zipf_keys)),
+                     ("quant", lambda: run_quant_path(torch, device))):
+        reset_peak(torch, device)
+        held[name] = int(torch.cuda.memory_allocated(device)) if on_card else None
+        t1 = time.perf_counter()
+        out[name] = fn()
+        out[name]["seconds"] = time.perf_counter() - t1
+        peaks[name] = peak_bytes(torch, device)
+        log(f"lm phase {name}: {out[name]['seconds']:.1f}s")
+    out["launches"] = launch_snapshot(lib)
+    out["max_memory_allocated"] = peaks
+    out["memory_allocated_at_start"] = held  # what earlier phases still hold
+    out["seconds"] = time.perf_counter() - t0
+    log(f"lm phase: {out['seconds']:.1f}s, peaks {peaks}")
+    return out, {"flash_attention": b6_call, "decode_attention": b7_call}
 
 
 # ----------------------------------------------------------------------------
@@ -1882,12 +2407,15 @@ def leaf_probe_replay(torch, lp_kernel, lp_ops, descend_call):
 
 
 def kernel_report(torch, mods, libs, summary, recorded, serve_summary, serve_recorded,
-                  per_call, train_summary, train_recorded, paths, forest_recorded):
-    """Replay one main-path call per kernel against its plain version.
+                  per_call, train_summary, train_recorded, paths, forest_recorded,
+                  lm_summary, lm_recorded):
+    """Replay one main-path call per kernel against its plain version, and
+    B6 and B7 also on the LM phase's granite-moe-3b-a800m calls
+    (``lm_recorded``; their rows' ``launches`` are that phase's).
     ``libs``: kernel name -> built library; ``per_call``: the kernels one
     call of B7, K3, K2 and K4 ran (``one_kernel_calls``); ``paths``: the
-    occ, forest, sharded-index and durable phases' summaries (their launch counts
-    join each row); ``forest_recorded``: the forest's first K1 and K3
+    occ, forest, sharded-index, durable and LM phases' summaries (their
+    launch counts join each row); ``forest_recorded``: the forest's first K1 and K3
     calls, at S = FOREST_SHARDS, replayed beside the K1 and K3 rows."""
     (td_kernel, td_ref, ec_kernel, ec_ref, rs_kernel, rs_ref, da_kernel, da_ref,
      fa_kernel, fa_ops, fa_ref, lp_kernel, lp_ops, lp_ref) = mods
@@ -1901,12 +2429,13 @@ def kernel_report(torch, mods, libs, summary, recorded, serve_summary, serve_rec
         k_ms = graph_ms(torch, k_fn)
         bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
         ops_ms = ops / ops_per_s * 1e3
+        kernel = name.split("@")[0]  # a row at another model's shapes: its kernel's counts
         rows.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": summary["launches"][name] if launches is None else launches,
-            "serve_launches": serve_summary["launches"].get(name, 0),
-            "train_launches": train_summary["launches"].get(name, 0),
-            **{f"{path}_launches": s["launches"].get(name, 0) for path, s in paths.items()},
+            "serve_launches": serve_summary["launches"].get(kernel, 0),
+            "train_launches": train_summary["launches"].get(kernel, 0),
+            **{f"{path}_launches": s["launches"].get(kernel, 0) for path, s in paths.items()},
             "max_abs_err": err, "tolerance": tol, "equal": err == 0.0,
             "ms": k_ms, "kernel_ms": k_ms, "call_ms": time_ms(torch, k_fn, 200),
             "plain_ms": graph_ms(torch, p_fn), "plain_call_ms": time_ms(torch, p_fn, 20),
@@ -2004,78 +2533,92 @@ def kernel_report(torch, mods, libs, summary, recorded, serve_summary, serve_rec
                "large_cap": range_scan_large_caps(torch, rs_kernel, rs_ref),
                "large_cap_scan": large["range_scan"]},
     )
-    # B7 decode_attention: the serve path's last decode call, then seeded
-    # random q/k/v at the same shapes, where every live column's weight
-    # shows in every row of the output
-    q, k, v, kw = serve_recorded
-    kv_len, scale = kw["kv_len"], kw["sm_scale"]
-    b, h, d = q.shape
-    kh = k.shape[1]
-    gen = torch.Generator(device=q.device).manual_seed(SEED)
-    rq, rk, rv = (torch.randn(x.shape, generator=gen, device=q.device).to(x.dtype)
-                  for x in (q, k, v))
-    r_got = da_kernel.decode_attention_cuda(rq, rk, rv, kv_len, scale)
-    r_want = da_ref.decode_attention_ref(rq, rk, rv, kv_len, sm_scale=scale)
-    r_err, r_tol = max_abs_err(torch, (r_got,), (r_want,)), ulps_at_max(torch, r_want, DECODE_ULPS)
-    if r_err > r_tol:
-        raise AssertionError(
-            f"decode_attention: kernel differs from its plain version on random inputs "
-            f"(max |err| {r_err} > {r_tol}, max |want| {float(r_want.abs().max())})"
+    def decode_row(name, recorded, launches, extra):
+        """B7 on a recorded decode call, then seeded random q/k/v at the same
+        shapes, where every live column's weight shows in every row of the
+        output."""
+        q, k, v, kw = recorded
+        kv_len, scale = kw["kv_len"], kw["sm_scale"]
+        b, h, d = q.shape
+        kh = k.shape[1]
+        gen = torch.Generator(device=q.device).manual_seed(SEED)
+        rq, rk, rv = (torch.randn(x.shape, generator=gen, device=q.device).to(x.dtype)
+                      for x in (q, k, v))
+        r_got = da_kernel.decode_attention_cuda(rq, rk, rv, kv_len, scale)
+        r_want = da_ref.decode_attention_ref(rq, rk, rv, kv_len, sm_scale=scale)
+        r_err = max_abs_err(torch, (r_got,), (r_want,))
+        r_tol = ulps_at_max(torch, r_want, DECODE_ULPS)
+        if r_err > r_tol:
+            raise AssertionError(
+                f"{name}: kernel differs from its plain version on random inputs "
+                f"(max |err| {r_err} > {r_tol}, max |want| {float(r_want.abs().max())})"
+            )
+        want = da_ref.decode_attention_ref(q, k, v, kv_len, sm_scale=scale)
+        capacity = da_kernel.cluster_capacity(q.dtype, d, h // kh)  # clusters of n blocks at once
+        sdpa = torch.nn.functional.scaled_dot_product_attention
+        kv, vv = k[:, :, :kv_len], v[:, :, :kv_len]
+        lib_ms = graph_ms(torch, lambda: sdpa(q[:, :, None], kv, vv, enable_gqa=True))
+        entry(
+            name, "src/repro_torch/csrc/decode_attention.cu",
+            "src/repro/kernels/decode_attention/kernel.py:72",
+            (da_kernel.decode_attention_cuda(q, k, v, kv_len, scale),), (want,),
+            lambda: da_kernel.decode_attention_cuda(q, k, v, kv_len, scale),
+            lambda: da_ref.decode_attention_ref(q, k, v, kv_len, sm_scale=scale),
+            2 * b * kh * kv_len * d * k.element_size() + 2 * q.numel() * q.element_size(),
+            {"q": list(q.shape), "cache": list(k.shape), "kv_len": kv_len, "dtype": str(q.dtype)},
+            lib_ms=lib_ms, tol=ulps_at_max(torch, want, DECODE_ULPS), launches=launches,
+            ops=4.0 * b * h * kv_len * d, ops_per_s=OPS_PER_S[str(q.dtype)],
+            extra={"max_abs_want": float(want.abs().max()), "random_max_abs_err": r_err,
+                   "random_tolerance": r_tol, "random_max_abs_want": float(r_want.abs().max()),
+                   "group": h // kh,
+                   "cluster_plan": list(da_kernel.cluster_plan(b, kh, kv_len, capacity)),
+                   "cluster_capacity": [capacity(n) for n in range(1, da_kernel.MAX_CLUSTER + 1)],
+                   **extra},
         )
-    want = da_ref.decode_attention_ref(q, k, v, kv_len, sm_scale=scale)
-    capacity = da_kernel.cluster_capacity(q.dtype, d, h // kh)  # clusters of n blocks at once
-    sdpa = torch.nn.functional.scaled_dot_product_attention
-    kv, vv = k[:, :, :kv_len], v[:, :, :kv_len]
-    lib_ms = graph_ms(torch, lambda: sdpa(q[:, :, None], kv, vv, enable_gqa=True))
-    entry(
-        "decode_attention", "src/repro_torch/csrc/decode_attention.cu",
-        "src/repro/kernels/decode_attention/kernel.py:72",
-        (da_kernel.decode_attention_cuda(q, k, v, kv_len, scale),), (want,),
-        lambda: da_kernel.decode_attention_cuda(q, k, v, kv_len, scale),
-        lambda: da_ref.decode_attention_ref(q, k, v, kv_len, sm_scale=scale),
-        2 * b * kh * kv_len * d * k.element_size() + 2 * q.numel() * q.element_size(),
-        {"q": list(q.shape), "cache": list(k.shape), "kv_len": kv_len, "dtype": str(q.dtype)},
-        lib_ms=lib_ms, tol=ulps_at_max(torch, want, DECODE_ULPS),
-        launches=serve_summary["launches"]["decode_attention"],
-        ops=4.0 * b * h * kv_len * d, ops_per_s=OPS_PER_S[str(q.dtype)],
-        extra={"max_abs_want": float(want.abs().max()), "random_max_abs_err": r_err,
-               "random_tolerance": r_tol, "random_max_abs_want": float(r_want.abs().max()),
-               "kernels_per_call": per_call["decode_attention"],
-               "cluster_plan": list(da_kernel.cluster_plan(b, kh, kv_len, capacity)),
-               "cluster_capacity": [capacity(n) for n in range(1, da_kernel.MAX_CLUSTER + 1)]},
-    )
 
-    # B6 flash_attention: the train phase's last forward call (and, in
-    # flash_replays, seeded random, windowed and ragged cases and the
-    # gradients)
-    q, k, v, kw = train_recorded
-    q, k, v = (x.detach() for x in (q, k, v))  # recorded inside the autograd Function
-    b, h, sq, d = q.shape
-    cases, grad_err = flash_replays(torch, fa_kernel, fa_ops, fa_ref, train_recorded)
-    want = fa_ref.attention_ref(q, k, v, **kw)
-    sdpa = torch.nn.functional.scaled_dot_product_attention
-    lib_ms = graph_ms(torch, lambda: sdpa(q, k, v, is_causal=True, enable_gqa=True))
-    causal_ops = 2.0 * b * h * sq * sq * d  # the causal half of 4·B·H·S²·D
-    hgmma = sass_count(libs["flash_attention"], "HGMMA")
-    if q.dtype == torch.bfloat16 and hgmma == 0:
-        raise AssertionError("flash_attention: no HGMMA in the built library: "
-                             "bf16 does not run on the tensor cores")
-    entry(
-        "flash_attention", "src/repro_torch/csrc/flash_attention.cu",
-        "src/repro/kernels/flash_attention/kernel.py:94",
-        (fa_kernel.flash_attention_cuda(q, k, v, **kw),), (want,),
-        lambda: fa_kernel.flash_attention_cuda(q, k, v, **kw),
-        lambda: fa_ref.attention_ref(q, k, v, **kw),
-        (2 * q.numel() + 2 * k.numel()) * q.element_size(),
-        {"q": list(q.shape), "kv": list(k.shape), "dtype": str(q.dtype), **kw},
-        lib_ms=lib_ms, tol=flash_tol(torch, want), launches=train_summary["launches"]["flash_attention"],
-        ops=causal_ops, ops_per_s=OPS_PER_S[str(q.dtype)],
-        extra={"max_abs_want": float(want.abs().max()), "replays": cases,
-               "grad_max_abs_err": grad_err,
-               "library": "scaled_dot_product_attention(is_causal=True, enable_gqa=True)",
-               "sass_hgmma": hgmma},
-    )
-    del want
+    def flash_row(name, recorded, launches):
+        """B6 on a recorded forward call (and, in flash_replays, seeded
+        random, windowed and ragged cases and the gradients)."""
+        q, k, v, kw = recorded
+        q, k, v = (x.detach() for x in (q, k, v))  # recorded inside the autograd Function
+        b, h, sq, d = q.shape
+        cases, grad_err = flash_replays(torch, fa_kernel, fa_ops, fa_ref, recorded)
+        want = fa_ref.attention_ref(q, k, v, **kw)
+        sdpa = torch.nn.functional.scaled_dot_product_attention
+        lib_ms = graph_ms(torch, lambda: sdpa(q, k, v, is_causal=True, enable_gqa=True))
+        causal_ops = 2.0 * b * h * sq * sq * d  # the causal half of 4·B·H·S²·D
+        hgmma = sass_count(libs["flash_attention"], "HGMMA")
+        if q.dtype == torch.bfloat16 and hgmma == 0:
+            raise AssertionError("flash_attention: no HGMMA in the built library: "
+                                 "bf16 does not run on the tensor cores")
+        entry(
+            name, "src/repro_torch/csrc/flash_attention.cu",
+            "src/repro/kernels/flash_attention/kernel.py:94",
+            (fa_kernel.flash_attention_cuda(q, k, v, **kw),), (want,),
+            lambda: fa_kernel.flash_attention_cuda(q, k, v, **kw),
+            lambda: fa_ref.attention_ref(q, k, v, **kw),
+            (2 * q.numel() + 2 * k.numel()) * q.element_size(),
+            {"q": list(q.shape), "kv": list(k.shape), "dtype": str(q.dtype), **kw},
+            lib_ms=lib_ms, tol=flash_tol(torch, want), launches=launches,
+            ops=causal_ops, ops_per_s=OPS_PER_S[str(q.dtype)],
+            extra={"max_abs_want": float(want.abs().max()), "replays": cases,
+                   "grad_max_abs_err": grad_err, "group": h // k.shape[1],
+                   "library": "scaled_dot_product_attention(is_causal=True, enable_gqa=True)",
+                   "sass_hgmma": hgmma},
+        )
+
+    # B7 decode_attention: the serve path's last decode call, and the LM
+    # phase's last one at granite-moe-3b-a800m's shapes (group 3)
+    decode_row("decode_attention", serve_recorded, serve_summary["launches"]["decode_attention"],
+               {"kernels_per_call": per_call["decode_attention"]})
+    decode_row(f"decode_attention@{LM_ARCH}", lm_recorded["decode_attention"],
+               lm_summary["serve"]["launches"]["decode_attention"], {})
+
+    # B6 flash_attention: the train phase's last forward call, and the LM
+    # phase's last one at granite-moe-3b-a800m's shapes (group 3)
+    flash_row("flash_attention", train_recorded, train_summary["launches"]["flash_attention"])
+    flash_row(f"flash_attention@{LM_ARCH}", lm_recorded["flash_attention"],
+              lm_summary["train"]["launches"]["flash_attention"])
 
     # B5 leaf_probe, standalone over the tree path's leaf rows
     lk, lv, lq, (p_slot, p_val), probe_launches = leaf_probe_replay(
@@ -2166,15 +2709,22 @@ def main() -> int:
     # 4. the training path at full width
     train_summary, train_recorded = run_train_path(torch, lib, torch.device("cuda"))
     print(json.dumps({"train_path": train_summary, "card": smi}), flush=True)
+    torch.cuda.empty_cache()  # the qwen2 trainer is gone: its blocks go back to the card
 
-    # 5. every kernel against its plain version at main-path shapes
+    # 5. the LM family and the training stack: granite-moe-3b-a800m served
+    # and trained, deepseek-v3 reduced, EmbedElim, DedupIndex, quantizers
+    lm_summary, lm_recorded = run_lm_family_path(torch, core, lib, torch.device("cuda"),
+                                                 zipf_keys)
+    print(json.dumps({"lm_family_path": lm_summary, "card": smi}), flush=True)
+
+    # 6. every kernel against its plain version at main-path shapes
     rows = kernel_report(
         torch, (td_kernel, td_ref, ec_kernel, ec_ref, rs_kernel, rs_ref, da_kernel, da_ref,
                 fa_kernel, fa_ops, fa_ref, lp_kernel, lp_ops, lp_ref),
         libs, summary, recorded, serve_summary, serve_recorded, per_call, train_summary,
         train_recorded, {"occ": occ_summary, "forest": forest_summary, "index": index_summary,
-                         "durable": durable_summary},
-        forest_recorded,
+                         "durable": durable_summary, "lm": lm_summary},
+        forest_recorded, lm_summary, lm_recorded,
     )
     print(json.dumps({"kernels": rows}), flush=True)
     print(smi, flush=True)

@@ -11,7 +11,8 @@ package's param tree as nested dicts of numpy arrays (stacked ``(L, …)``
 layer leaves; a tied unembedding reads ``embed/tok``, so there is no second
 copy to carry) and returns the same tree of tensors on ``device``;
 ``cache_from_numpy`` takes the decode cache (``{"layers": KVCache(k, v)}``
-with numpy leaves).  ``params_to_numpy`` / ``cache_to_numpy`` go the other
+with numpy leaves, and ``"dense_layers"`` too for an MoE arch with dense
+first layers; an MLA cache has ``v=None``).  ``params_to_numpy`` / ``cache_to_numpy`` go the other
 way.  ``opt_state_from_numpy`` / ``opt_state_to_numpy`` carry AdamW's
 ``OptState(m, v, count)`` (a NamedTuple or a dict of those fields), so a
 JAX ``(params, OptState)`` crosses whole.  bfloat16 arrays

@@ -1,4 +1,4 @@
-"""LM stack of the port: the dense decoder-only family's decode path."""
+"""LM stack of the port: the decoder-only families (dense, moe, vlm)."""
 from repro_torch.models.backbone import (
     cache_spec,
     compute_params,

@@ -14,8 +14,13 @@ kernel (``kernels/decode_attention``; the JAX package calls its plain
 reference here, the port calls the kernel on CUDA tensors).  Sliding-window
 decode stays plain, as in JAX.
 
-MLA and cross-attention wait for their families (ROADMAP.md queue A,
-item 6).
+MLA (DeepSeek-V3's latent attention) trains through the plain attention
+(``attention_ref``), as JAX's does: its head dim ``d_head + rope_head`` (192
+at full width) is no instance of the flash kernel, and the JAX package
+calls no Pallas kernel there.  Its decode is the absorbed form over a cache
+of the compressed latent alone, ``(B, S, kv_lora + rope_head)`` per layer
+(``KVCache(latent, None)``).  Cross-attention waits for the audio family
+(ROADMAP.md queue A, item 6).
 """
 from __future__ import annotations
 
@@ -25,13 +30,15 @@ import torch
 
 from repro_torch.kernels.decode_attention.ops import decode_attention
 from repro_torch.kernels.flash_attention.ops import flash_attention
-from repro_torch.models.layers import cdt, rope_cos_sin, rotate
+from repro_torch.kernels.flash_attention.ref import attention_ref
+from repro_torch.models.layers import apply_rope, cdt, rope_cos_sin, rotate
 from repro_torch.models.params import P, TensorSpec
 
 
 class KVCache(NamedTuple):
-    k: torch.Tensor  # (B, KH, S, D), or (L, B, KH, S, D) stacked over layers
-    v: Optional[torch.Tensor]
+    k: torch.Tensor  # (B, KH, S, D), or (L, B, KH, S, D) stacked over layers;
+    # MLA: the latent (B, S, kv_lora + rope_head), or (L, B, S, ...)
+    v: Optional[torch.Tensor]  # None for MLA
 
 
 def gqa_spec(cfg):
@@ -133,3 +140,93 @@ def gqa_cache_spec(cfg, batch, s_max, layers=None):
         shape = (layers,) + shape
     dt = cdt(cfg)
     return KVCache(k=TensorSpec(shape, dt), v=TensorSpec(shape, dt))
+
+
+# ---------------------------------------------------------------------------
+# MLA (DeepSeek-V3): low-rank latent KV + decoupled rope head
+# ---------------------------------------------------------------------------
+
+
+def mla_spec(cfg):
+    d, h, dh = cfg.d_model, cfg.n_heads, cfg.d_head
+    ql, kvl, dr = cfg.q_lora, cfg.kv_lora, cfg.rope_head
+    return {
+        "wdq": P((d, ql), ("embed", None)),  # q down
+        "wuq": P((ql, h, dh), (None, "heads", None)),  # q up (nope part)
+        "wqr": P((ql, h, dr), (None, "heads", None)),  # q rope part
+        "wdkv": P((d, kvl), ("embed", None)),  # kv joint down (the latent)
+        "wkr": P((d, dr), ("embed", None)),  # shared k rope
+        "wuk": P((kvl, h, dh), (None, "heads", None)),  # k up
+        "wuv": P((kvl, h, dh), (None, "heads", None)),  # v up
+        "wo": P((h, dh, d), ("heads", None, "embed")),
+    }
+
+
+def _mla_scale(cfg) -> float:
+    return 1.0 / ((cfg.d_head + cfg.rope_head) ** 0.5)
+
+
+def mla_train(p, x, cfg):
+    """x: (B, S, d) → (B, S, d), causal, every row at positions 0 … S-1."""
+    dt = cdt(cfg)
+    b, s, _ = x.shape
+    positions = torch.arange(s, device=x.device).expand(b, s)
+    cq = x @ p["wdq"].to(dt)
+    q_nope = _proj(cq, p["wuq"], dt)  # (B, H, S, dh)
+    q_rope = apply_rope(_proj(cq, p["wqr"], dt), positions[:, None, :], cfg.rope_theta)
+
+    ckv = x @ p["wdkv"].to(dt)  # (B, S, kv_lora)
+    k_rope = x @ p["wkr"].to(dt)  # (B, S, dr)
+    k_rope = apply_rope(k_rope[:, None], positions[:, None, :], cfg.rope_theta)[:, 0]
+    k_nope = _proj(ckv, p["wuk"], dt)
+    v = _proj(ckv, p["wuv"], dt)
+
+    q = torch.cat([q_nope, q_rope], dim=-1)
+    k = torch.cat([k_nope, k_rope[:, None].expand(q_rope.shape)], dim=-1)
+    o = attention_ref(q, k, v, causal=True, sm_scale=_mla_scale(cfg))  # (B, H, S, dh)
+    hd = o.shape[1] * o.shape[3]
+    return o.transpose(1, 2).reshape(b, s, hd) @ p["wo"].to(dt).reshape(hd, -1)
+
+
+def mla_decode(p, x, cfg, cache: KVCache, pos: int):
+    """Absorbed MLA decode: cache = latent (B, S, kv_lora + rope_head).  The
+    new latent of every batch row is written at ``pos`` in place (clamped
+    into range, as JAX's ``dynamic_update_slice``).  Returns (y (B, 1, d),
+    cache)."""
+    dt = cdt(cfg)
+    b = x.shape[0]
+    positions = torch.full((b, 1), pos, dtype=torch.int32, device=x.device)
+    cq = x @ p["wdq"].to(dt)
+    q_nope = _proj(cq, p["wuq"], dt)[:, :, 0]  # (B, H, dh)
+    q_rope = apply_rope(_proj(cq, p["wqr"], dt), positions[:, None, :], cfg.rope_theta)[:, :, 0]
+
+    ckv = (x @ p["wdkv"].to(dt))[:, 0]  # (B, kv_lora)
+    k_rope = x[:, 0] @ p["wkr"].to(dt)
+    k_rope = apply_rope(k_rope[:, None], positions, cfg.rope_theta)[:, 0]
+    lat = cache.k
+    s = lat.shape[1]
+    lat[:, min(max(int(pos), 0), s - 1)] = torch.cat([ckv, k_rope], dim=-1).to(lat.dtype)
+    kv_len = int(pos) + 1
+
+    c_lat = lat[..., : cfg.kv_lora].to(dt)  # (B, S, C)
+    r_lat = lat[..., cfg.kv_lora :].to(dt)  # (B, S, R)
+    # absorb W_UK into q: q_c (B, H, C) = q_nope @ W_UK^T
+    q_c = torch.einsum("bhk,chk->bhc", q_nope, p["wuk"].to(dt))
+    scores = torch.einsum("bhc,bsc->bhs", q_c.float(), c_lat.float())
+    scores = scores + torch.einsum("bhr,bsr->bhs", q_rope.float(), r_lat.float())
+    scores = scores / ((cfg.d_head + cfg.rope_head) ** 0.5)
+    live = torch.arange(s, device=x.device)[None, None, :] < kv_len
+    w = torch.softmax(scores.masked_fill(~live, -1e30), dim=-1)
+    # attend over the latents, then absorb W_UV on the way out
+    o_lat = torch.einsum("bhs,bsc->bhc", w, c_lat.float()).to(dt)
+    o = torch.einsum("bhc,chk->bhk", o_lat, p["wuv"].to(dt))
+    hd = o.shape[1] * o.shape[2]
+    y = o.reshape(b, hd) @ p["wo"].to(dt).reshape(hd, -1)
+    return y[:, None, :], cache
+
+
+def mla_cache_spec(cfg, batch, s_max, layers=None):
+    shape = (batch, s_max, cfg.kv_lora + cfg.rope_head)
+    if layers:
+        shape = (layers,) + shape
+    return KVCache(k=TensorSpec(shape, cdt(cfg)), v=None)

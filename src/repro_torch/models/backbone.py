@@ -1,5 +1,6 @@
-"""Model assembly: the dense decoder-only LM, training forward and decode
-path (port of the ``_lm_*`` paths of ``src/repro/models/backbone.py``).
+"""Model assembly: the decoder-only LM family (dense, moe, vlm), training
+forward and decode path (port of the ``_lm_*`` paths of
+``src/repro/models/backbone.py``).
 
 Public API (used by train/serve/launch):
     model_spec(cfg)                          → param spec tree (models/params.P)
@@ -10,25 +11,41 @@ Public API (used by train/serve/launch):
     compute_params(params, cfg)              → params with each weight cast once
     forward_decode(params, cache, tokens, pos, cfg) → (logits (B, V) f32, cache)
 
-Layer stacks keep the JAX package's stacked ``(L, …)`` params and caches;
-the layer loop is explicit (JAX scans it).  ``forward_decode`` writes the
-new cache column of each layer in place and returns the same cache.
-``remat="full"`` checkpoints each layer (``torch.utils.checkpoint``), as
-``jax.checkpoint`` does; its backward runs the layer's forward again, the
+Layer stacks keep the JAX package's stacked ``(L, …)`` params and caches,
+grouped as JAX groups them: an MoE arch with ``first_k_dense`` dense layers
+has a ``dense_layers`` stack before its ``layers``; a VLM projects its
+precomputed patch embeddings (``extra["vis_embeds"]``) with ``vis_proj``
+and prepends them.  The layer loop is explicit (JAX scans it).
+``forward_decode`` writes the new cache column of each layer in place and
+returns the same cache; an MLA cache holds the latent alone
+(``KVCache(latent, None)``).
+
+``remat`` checkpoints each layer with ``torch.utils.checkpoint``, as
+``jax.checkpoint`` does: ``"full"`` keeps only the layer's input; ``"dots"``
+keeps the outputs of the 2-D products (``aten.mm`` / ``aten.addmm``), which
+is what JAX's ``checkpoint_dots_with_no_batch_dims`` keeps, and recomputes
+everything else, batched products (attention scores, the expert products
+over E) included.  Either backward runs the layer's forward again, the
 attention kernel included.
 
 Not ported yet, each raising ``NotImplementedError`` that names its roadmap
-item: ``remat="dots"``, and the moe, vlm, ssm, hybrid and audio families.
+item: the ssm, hybrid and audio families.
 """
 from __future__ import annotations
 
+import functools
 from typing import Any, Dict
 
 import torch
 import torch.nn.functional as F
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import (
+    CheckpointPolicy,
+    checkpoint,
+    create_selective_checkpoint_contexts,
+)
 
 from repro_torch.models import attention as attn
+from repro_torch.models import moe as moe_mod
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import (
     cdt,
@@ -43,16 +60,13 @@ from repro_torch.models.layers import (
 from repro_torch.kernels._lib import resolve_device
 from repro_torch.models.params import P, map_specs
 
-_REMAT_DOTS = (
-    "remat='dots' is not ported yet (ROADMAP.md queue A, item 6: a checkpoint "
-    "policy that keeps only the matmul outputs); use 'full' or 'none'"
-)
+_FAMILIES = ("dense", "moe", "vlm")
 
 
 def _family_not_ported(what: str) -> NotImplementedError:
     return NotImplementedError(
-        f"{what} is not ported yet (ROADMAP.md queue A, item 6: the moe, vlm, ssm, "
-        "hybrid and audio families)"
+        f"{what} is not ported yet (ROADMAP.md queue A, item 6: the ssm, hybrid and "
+        "audio families)"
     )
 
 
@@ -69,106 +83,159 @@ def stack_specs(spec, n: int):
     )
 
 
+_SAVED_BY_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    """``remat="dots"``: keep the 2-D products' outputs, recompute the rest."""
+    if op in _SAVED_BY_DOTS:
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+_dots_context = functools.partial(create_selective_checkpoint_contexts, _dots_policy)
+
+
+def _remat(body, cfg):
+    """``body(params, x)`` checkpointed as ``cfg.remat`` says."""
+    if cfg.remat == "full":
+        return lambda lp, x: checkpoint(body, lp, x, use_reentrant=False)
+    if cfg.remat == "dots":
+        return lambda lp, x: checkpoint(body, lp, x, use_reentrant=False,
+                                        context_fn=_dots_context)
+    return body
+
+
 # ---------------------------------------------------------------------------
-# transformer block (dense GQA)
+# transformer block (dense / moe / mla / swa)
 # ---------------------------------------------------------------------------
+
+
+def _attn_spec(cfg):
+    return attn.mla_spec(cfg) if cfg.attn == "mla" else attn.gqa_spec(cfg)
+
+
+def _ffn_spec(cfg, moe: bool):
+    return moe_mod.moe_spec(cfg) if moe else mlp_spec(cfg)
 
 
 def block_spec(cfg, moe: bool = False):
-    if moe:
-        raise _family_not_ported("the MoE block")
-    if cfg.attn == "mla":
-        raise _family_not_ported("MLA attention")
     return {
         "ln1": norm_spec(cfg),
-        "attn": attn.gqa_spec(cfg),
+        "attn": _attn_spec(cfg),
         "ln2": norm_spec(cfg),
-        "ffn": mlp_spec(cfg),
+        "ffn": _ffn_spec(cfg, moe),
     }
 
 
+def _ffn(p, h, cfg, moe: bool):
+    return moe_mod.moe_apply(p, h, cfg) if moe else mlp_apply(p, h, cfg)
+
+
 def block_apply(p, x, cfg, moe: bool = False):
-    if moe:
-        raise _family_not_ported("the MoE block")
-    if cfg.attn == "mla":
-        raise _family_not_ported("MLA attention")
     h = norm_apply(p["ln1"], x, cfg)
-    h = attn.gqa_train(p["attn"], h, cfg)
+    if cfg.attn == "mla":
+        h = attn.mla_train(p["attn"], h, cfg)
+    else:
+        h = attn.gqa_train(p["attn"], h, cfg)
     x = x + h
     h = norm_apply(p["ln2"], x, cfg)
-    h = mlp_apply(p["ffn"], h, cfg)
-    return x + h
+    return x + _ffn(p["ffn"], h, cfg, moe)
 
 
 def block_decode(p, x, cfg, cache, pos, moe: bool = False):
-    if moe:
-        raise _family_not_ported("the MoE block")
-    if cfg.attn == "mla":
-        raise _family_not_ported("MLA attention")
     h = norm_apply(p["ln1"], x, cfg)
-    h, cache = attn.gqa_decode(p["attn"], h, cfg, cache, pos)
+    if cfg.attn == "mla":
+        h, cache = attn.mla_decode(p["attn"], h, cfg, cache, pos)
+    else:
+        h, cache = attn.gqa_decode(p["attn"], h, cfg, cache, pos)
     x = x + h
     h = norm_apply(p["ln2"], x, cfg)
-    h = mlp_apply(p["ffn"], h, cfg)
-    return x + h, cache
+    return x + _ffn(p["ffn"], h, cfg, moe), cache
 
 
-def _layers(tree, n: int):
-    """The ``n`` per-layer slices of a stacked ``(L, …)`` param tree (views;
-    one ``unbind`` per leaf)."""
+def _layers(tree):
+    """The per-layer slices of a stacked ``(L, …)`` param tree (views; one
+    ``unbind`` per leaf)."""
     if isinstance(tree, torch.Tensor):
         return tree.unbind(0)
-    parts = {k: _layers(v, n) for k, v in tree.items()}
+    parts = {k: _layers(v) for k, v in tree.items()}
+    n = len(next(iter(parts.values())))
     return [{k: v[i] for k, v in parts.items()} for i in range(n)]
 
 
 def _scan_stack(params, x, cfg, body):
     """x through the stacked-layer params, one layer after another (JAX's
-    ``lax.scan``), each layer checkpointed under ``remat="full"``."""
-    if cfg.remat == "dots":
-        raise NotImplementedError(_REMAT_DOTS)
-    for lp in _layers(params, cfg.n_layers):
-        if cfg.remat == "full":
-            x = checkpoint(body, lp, x, use_reentrant=False)
-        else:
-            x = body(lp, x)
+    ``lax.scan``), each layer checkpointed as ``cfg.remat`` says."""
+    step = _remat(body, cfg)
+    for lp in _layers(params):
+        x = step(lp, x)
+    return x
+
+
+def _decode_stack(params, cache, x, cfg, pos, moe: bool):
+    """One decode step through a stack, each layer on its cache slice."""
+    ks = cache.k.unbind(0)
+    vs = cache.v.unbind(0) if cache.v is not None else (None,) * len(ks)
+    for lp, k, v in zip(_layers(params), ks, vs):
+        x, _ = block_decode(lp, x, cfg, attn.KVCache(k, v), pos, moe)
     return x
 
 
 # ---------------------------------------------------------------------------
-# family: dense (decoder-only transformer LM)
+# family: dense / moe / vlm  (decoder-only transformer LM)
 # ---------------------------------------------------------------------------
 
 
 def _lm_spec(cfg: ModelConfig):
-    if cfg.n_experts:
-        raise _family_not_ported("the moe family")
-    if cfg.family == "vlm":
-        raise _family_not_ported("the vlm family")
     s: Dict[str, Any] = {"embed": embed_spec(cfg), "ln_f": norm_spec(cfg)}
-    s["layers"] = stack_specs(block_spec(cfg, moe=False), cfg.n_layers)
+    if cfg.n_experts:
+        n_dense = cfg.first_k_dense
+        if n_dense:
+            s["dense_layers"] = stack_specs(block_spec(cfg, moe=False), n_dense)
+        s["layers"] = stack_specs(block_spec(cfg, moe=True), cfg.n_layers - n_dense)
+    else:
+        s["layers"] = stack_specs(block_spec(cfg, moe=False), cfg.n_layers)
+    if cfg.family == "vlm":
+        # the modality frontend is a stub, as in JAX: precomputed patch
+        # embeddings arrive as inputs; only a projection is learned here
+        s["vis_proj"] = P((cfg.d_model, cfg.d_model), ("embed", "embed"))
     return s
 
 
-def _lm_forward(params, tokens, cfg: ModelConfig):
+def _lm_forward(params, tokens, cfg: ModelConfig, extra=None):
     x = embed_apply(params["embed"], tokens, cfg)
-    x = _scan_stack(params["layers"], x, cfg, lambda p, h: block_apply(p, h, cfg))
+    if cfg.family == "vlm":
+        vis = extra["vis_embeds"].to(cdt(cfg)) @ params["vis_proj"].to(cdt(cfg))
+        x = torch.cat([vis, x], dim=1)
+    moe = bool(cfg.n_experts)
+    if moe and cfg.first_k_dense:
+        x = _scan_stack(params["dense_layers"], x, cfg,
+                        lambda p, h: block_apply(p, h, cfg, False))
+    x = _scan_stack(params["layers"], x, cfg, lambda p, h: block_apply(p, h, cfg, moe))
     x = norm_apply(params["ln_f"], x, cfg)
+    if cfg.family == "vlm":
+        x = x[:, extra["vis_embeds"].shape[1]:]  # logits for the text positions
     return unembed_apply(params["embed"], x, cfg)
 
 
 def _lm_cache_spec(cfg, batch, s_max):
-    if cfg.attn == "mla":
-        raise _family_not_ported("MLA attention")
-    return {"layers": attn.gqa_cache_spec(cfg, batch, s_max, layers=cfg.n_layers)}
+    mk = attn.mla_cache_spec if cfg.attn == "mla" else attn.gqa_cache_spec
+    c = {}
+    if cfg.n_experts and cfg.first_k_dense:
+        c["dense_layers"] = mk(cfg, batch, s_max, layers=cfg.first_k_dense)
+        c["layers"] = mk(cfg, batch, s_max, layers=cfg.n_layers - cfg.first_k_dense)
+    else:
+        c["layers"] = mk(cfg, batch, s_max, layers=cfg.n_layers)
+    return c
 
 
 def _lm_decode(params, cache, tokens, pos, cfg):
     x = embed_apply(params["embed"], tokens[:, None], cfg)
-    kv = cache["layers"]
-    n = cfg.n_layers
-    for lp, k, v in zip(_layers(params["layers"], n), kv.k.unbind(0), kv.v.unbind(0)):
-        x, _ = block_decode(lp, x, cfg, attn.KVCache(k, v), pos)
+    moe = bool(cfg.n_experts)
+    if moe and cfg.first_k_dense:
+        x = _decode_stack(params["dense_layers"], cache["dense_layers"], x, cfg, pos, False)
+    x = _decode_stack(params["layers"], cache["layers"], x, cfg, pos, moe)
     x = norm_apply(params["ln_f"], x, cfg)
     logits = unembed_apply(params["embed"], x, cfg)
     return logits[:, 0], cache
@@ -179,18 +246,19 @@ def _lm_decode(params, cache, tokens, pos, cfg):
 # ---------------------------------------------------------------------------
 
 
-def _dense(cfg: ModelConfig):
-    if cfg.family != "dense":
+def _lm_family(cfg: ModelConfig):
+    """Refuse the families still to port."""
+    if cfg.family not in _FAMILIES:
         raise _family_not_ported(f"the {cfg.family} family")
 
 
 def model_spec(cfg: ModelConfig):
-    _dense(cfg)
+    _lm_family(cfg)
     return _lm_spec(cfg)
 
 
 def cache_spec(cfg: ModelConfig, batch: int, s_max: int):
-    _dense(cfg)
+    _lm_family(cfg)
     return _lm_cache_spec(cfg, batch, s_max)
 
 
@@ -201,20 +269,23 @@ def init_cache(cfg: ModelConfig, batch: int, s_max: int, device=None):
     spec = cache_spec(cfg, batch, s_max)
     return {
         name: attn.KVCache(
-            *(torch.zeros(s.shape, dtype=s.dtype, device=device) for s in kv)
+            *(None if s is None else torch.zeros(s.shape, dtype=s.dtype, device=device)
+              for s in kv)
         )
         for name, kv in spec.items()
     }
 
 
-_NORMS = {"ln1", "ln2", "ln_f"}
+# kept in fp32: the norms, and the MoE router, which JAX reads from the fp32
+# weight (a router cast to bf16 and back would route differently)
+_FP32_LEAVES = {"ln1", "ln2", "ln_f", "router"}
 
 
 def compute_params(params, cfg: ModelConfig):
     """``params`` with every weight that the model casts to the compute
-    dtype at use cast once now; norm parameters and the embedding table
-    (gathered in the compute dtype but read in fp32 by the tied unembed)
-    keep their fp32 values.  Each cast weight has the bf16 value the
+    dtype at use cast once now; norm parameters, the MoE router (read in
+    f32) and the embedding table (gathered in the compute dtype but read in
+    fp32 by the tied unembed) keep their fp32 values.  Each cast weight has the bf16 value the
     per-use cast would give, so the outputs are the same; at qwen2-0.5b's
     full width a cast at every step would move about 3 GB a step."""
     dt = cdt(cfg)
@@ -222,7 +293,7 @@ def compute_params(params, cfg: ModelConfig):
     def rec(tree, path):
         if isinstance(tree, torch.Tensor):
             parts = path.split("/")
-            keep = parts[0] == "embed" or bool(_NORMS.intersection(parts))
+            keep = parts[0] == "embed" or bool(_FP32_LEAVES.intersection(parts))
             return tree if keep else tree.to(dt)
         return {k: rec(v, f"{path}/{k}" if path else k) for k, v in tree.items()}
 
@@ -232,19 +303,20 @@ def compute_params(params, cfg: ModelConfig):
 def forward_decode(params, cache, tokens, pos, cfg: ModelConfig):
     """One decode step of every batch row at the shared position ``pos``
     (a host int).  tokens: (B,) int.  Returns (logits (B, V) f32, cache)."""
-    _dense(cfg)
+    _lm_family(cfg)
     return _lm_decode(params, cache, tokens, int(pos), cfg)
 
 
 def forward_train(params, tokens, cfg: ModelConfig, extra=None):
-    """tokens: (B, S) int → logits (B, S, V) f32.  ``extra`` (the other
-    families' frames or patch embeddings) is unused by the dense family."""
-    _dense(cfg)
-    return _lm_forward(params, tokens, cfg)
+    """tokens: (B, S) int → logits (B, S, V) f32.  ``extra``: a VLM's
+    ``{"vis_embeds": (B, vis_tokens, d_model)}``; unused by the others."""
+    _lm_family(cfg)
+    return _lm_forward(params, tokens, cfg, extra)
 
 
 def loss_fn(params, batch, cfg: ModelConfig):
-    """Next-token cross-entropy, log-softmax in f32.  batch: {tokens (B, S)}.
+    """Next-token cross-entropy, log-softmax in f32.  batch: {tokens (B, S),
+    [vis_embeds]}.
     Returns (loss, {"loss", "ppl"})."""
     tokens = batch["tokens"]
     extra = {k: v for k, v in batch.items() if k != "tokens"} or None

@@ -1,6 +1,5 @@
-"""Optimizer of the port's training stack: AdamW and its schedules.  The
-sparse EmbedElim update (``src/repro/optim/sparse.py``) is off the
-trainer's path and not ported yet (ROADMAP.md queue A, item 8)."""
+"""Optimizer of the port's training stack: AdamW, its schedules and the
+sparse EmbedElim update."""
 from repro_torch.optim.adamw import (
     OptState,
     adamw_init,
@@ -8,6 +7,7 @@ from repro_torch.optim.adamw import (
     clip_by_global_norm,
 )
 from repro_torch.optim.schedules import constant_lr, warmup_cosine
+from repro_torch.optim.sparse import embed_elim_update
 
 __all__ = [
     "OptState",
@@ -16,4 +16,5 @@ __all__ = [
     "clip_by_global_norm",
     "warmup_cosine",
     "constant_lr",
+    "embed_elim_update",
 ]

@@ -4,8 +4,13 @@ The state mirrors the param tree (nested dicts of tensors); ``OptState``
 keeps the JAX field names, so a checkpoint's leaf names are the same in
 both packages (``opt.m.…``, ``opt.v.…``, ``opt.count``).  Decay masking
 follows the usual convention: no decay on 1-D tensors (norms, biases).
-Every function runs under ``torch.no_grad()`` and returns new trees, as the
-JAX functions do; nothing is updated in place."""
+Every function runs under ``torch.no_grad()`` with one body, which updates
+its trees in place, a leaf at most ``CHUNK`` elements at a time.  A caller
+that donates its trees (``donate=True``, the JAX train step's
+``donate_argnums``) gets them back updated; any other call updates copies
+and returns new trees, as the JAX functions do.  At granite-moe-3b's 3.4 B
+parameters the new trees would need another 54 GB of fp32 beside the old
+ones."""
 from __future__ import annotations
 
 from typing import Any, NamedTuple
@@ -45,12 +50,30 @@ def adamw_init(params) -> OptState:
 
 
 @torch.no_grad()
-def clip_by_global_norm(grads, max_norm: float):
+def clip_by_global_norm(grads, max_norm: float, *, donate: bool = False):
     """``grads`` scaled so their global L2 norm is at most ``max_norm``, and
-    the norm before scaling (f32)."""
+    the norm before scaling (f32).  ``donate`` scales ``grads`` in place."""
     gn = torch.sqrt(sum(torch.sum(torch.square(g.float())) for g in tree_leaves(grads)))
     scale = torch.clamp(max_norm / (gn + 1e-9), max=1.0)
-    return tree_map(lambda g: (g * scale).to(g.dtype), grads), gn
+    if not donate:
+        grads = tree_map(torch.clone, grads)
+    for g in tree_leaves(grads):
+        g.mul_(scale)
+    return grads, gn
+
+
+CHUNK = 1 << 26  # elements an update pass takes at once: 256 MiB a temporary in fp32
+
+
+def _chunks(*leaves):
+    """Equal views of same-shaped leaves: runs of whole rows along dim 0
+    (layers of a stacked leaf) of at most ``CHUNK`` elements where the leaf
+    is larger, else the leaves whole."""
+    x = leaves[0]
+    if x.dim() == 0 or x.numel() <= CHUNK:
+        return (leaves,)
+    rows = max(1, CHUNK * x.shape[0] // x.numel())
+    return zip(*(t.split(rows) for t in leaves))
 
 
 @torch.no_grad()
@@ -64,25 +87,31 @@ def adamw_update(
     b2: float = 0.95,
     eps: float = 1e-8,
     weight_decay: float = 0.1,
+    donate: bool = False,
 ):
-    """One AdamW step.  Returns (new params, new OptState)."""
+    """One AdamW step.  Returns (new params, new OptState); with ``donate``,
+    ``params`` and ``state``'s moments updated in place (fp32 params)."""
+    if not donate:
+        params = tree_map(torch.clone, params)
+        state = state._replace(m=tree_map(torch.clone, state.m), v=tree_map(torch.clone, state.v))
     count = state.count + 1
     cf = count.float()
     bc1 = 1.0 - torch.pow(b1, cf)
     bc2 = 1.0 - torch.pow(b2, cf)
 
-    def upd(g, m, v, p):
-        gf = g.float()
-        m_new = b1 * m + (1 - b1) * gf
-        v_new = b2 * v + (1 - b2) * gf * gf
-        mhat = m_new / bc1
-        vhat = v_new / bc2
-        step = mhat / (torch.sqrt(vhat) + eps)
-        if weight_decay and p.dim() >= 2:  # no decay on norms/biases (1-D)
-            step = step + weight_decay * p.float()
-        p_new = (p.float() - lr * step).to(p.dtype)
-        return p_new, m_new, v_new
+    def upd_(g, m, v, p):
+        decay = weight_decay and p.dim() >= 2  # no decay on norms/biases (1-D)
+        for g, m, v, p in _chunks(g, m, v, p):
+            gf = g.float()
+            m.mul_(b1).add_(gf * (1 - b1))
+            t = gf * (1 - b2)
+            v.mul_(b2).add_(t.mul_(gf))
+            step = m / bc1
+            denom = v / bc2
+            step.div_(denom.sqrt_().add_(eps))
+            if decay:
+                step.add_(weight_decay * p)
+            p.sub_(step.mul_(lr))
 
-    out = tree_map(upd, grads, state.m, state.v, params)
-    pick = lambda i: tree_map(lambda t: t[i], out) if isinstance(out, dict) else out[i]
-    return pick(0), OptState(m=pick(1), v=pick(2), count=count)
+    tree_map(upd_, grads, state.m, state.v, params)
+    return params, OptState(m=state.m, v=state.v, count=count)

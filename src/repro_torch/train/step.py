@@ -36,12 +36,16 @@ def make_train_step(
     grad_clip: float = 1.0,
     microbatch: Optional[int] = None,
     schedule=warmup_cosine,
+    donate: bool = False,
 ):
     """Returns ``step_fn(params, opt, batch, step) -> TrainStepOut``: the
     loss and its grads (summed over ``batch // microbatch`` accumulation
     steps, then averaged, when ``microbatch`` is set), global-norm clipping,
     the learning rate ``schedule(step, peak=lr_peak)`` and one AdamW step.
-    ``batch`` is a dict of tensors on the params' device; ``step`` an int."""
+    ``batch`` is a dict of tensors on the params' device; ``step`` an int.
+    ``donate`` (JAX's ``donate_argnums=(0, 1)``) updates the params and the
+    optimizer state it is given in place and returns them; the values are
+    those of the step that does not donate."""
 
     def loss_and_grads(params, batch):
         live = tree_map(lambda p: p.detach().requires_grad_(), params)
@@ -66,9 +70,9 @@ def make_train_step(
 
     def step_fn(params, opt_state, batch, step):
         l, g = grads_of(params, batch)
-        g, gnorm = clip_by_global_norm(g, grad_clip)
+        g, gnorm = clip_by_global_norm(g, grad_clip, donate=donate)
         lr = schedule(step, peak=lr_peak).to(l.device)
-        params, opt_state = adamw_update(g, opt_state, params, lr)
+        params, opt_state = adamw_update(g, opt_state, params, lr, donate=donate)
         metrics = {"loss": l, "grad_norm": gnorm, "lr": lr}
         return TrainStepOut(params, opt_state, metrics)
 

@@ -12,7 +12,9 @@
     `straggler_factor`× the EMA are counted and surfaced in metrics.
 
 The Trainer runs on the CUDA card unless the caller names another device,
-and raises when there is none.  Elastic restore onto another mesh waits for
+and raises when there is none.  Its step donates the params and optimizer
+state it owns (updated in place, as JAX's jitted step donates them), so a
+step needs no second copy of either.  Elastic restore onto another mesh waits for
 the parallel layer (ROADMAP.md queue A, item 9).
 """
 from __future__ import annotations
@@ -79,7 +81,7 @@ class Trainer:
         self._stop = False
         self.step_fn = make_train_step(
             model_cfg, lr_peak=tcfg.lr_peak, grad_clip=tcfg.grad_clip,
-            microbatch=tcfg.microbatch,
+            microbatch=tcfg.microbatch, donate=True,
         )
 
         # ---- init or resume ---------------------------------------------

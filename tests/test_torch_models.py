@@ -4,8 +4,9 @@ Layer functions first (norms, rotary embedding, MLPs, embeddings), then
 ``forward_decode`` of ``reduced(qwen2-0.5b)`` (2 layers, f32) over 6 steps
 with the JAX package's initialized params carried across by
 ``repro_torch.interop``: logits and caches within atol/rtol 1e-4 (f32
-products summed in another order).  The configs, the param spec tree and
-the refusals of what is not ported are checked too."""
+products summed in another order).  The configs, the param spec trees
+(the MoE, MLA and VLM archs' too) and the refusals of what is not ported
+are checked too."""
 import dataclasses
 
 import numpy as np
@@ -45,14 +46,15 @@ def test_configs_equal_jax():
     assert dataclasses.asdict(t) == dataclasses.asdict(j)
 
 
-@pytest.mark.parametrize("arch", ["xlstm-350m", "deepseek-v3-671b", "whisper-tiny"])
+@pytest.mark.parametrize("arch", ["xlstm-350m", "zamba2-1.2b", "whisper-tiny"])
 def test_other_families_name_the_roadmap_item(arch):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         get_config(arch)
 
 
 def test_spec_tree_and_param_count_equal_jax():
-    for arch in ("qwen2-0.5b", "h2o-danube-1.8b"):
+    for arch in ("qwen2-0.5b", "h2o-danube-1.8b", "granite-moe-3b-a800m", "deepseek-v3-671b",
+                 "internvl2-2b"):
         ts = backbone.model_spec(get_config(arch))
         js = jbackbone.model_spec(jget_config(arch))
         flat_t = {p: (s.shape, s.axes, s.init, s.scale) for p, s in tparams._walk(ts)}
@@ -176,4 +178,4 @@ def test_training_and_other_families_refused():
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         backbone.forward_train({}, torch.zeros((1, 2), dtype=torch.int64), t.replace(family="ssm"))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        backbone.model_spec(t.replace(family="moe", n_experts=4))
+        backbone.model_spec(t.replace(family="audio"))
