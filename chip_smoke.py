@@ -60,8 +60,8 @@ csrc`` (one ``nvcc`` per source, in parallel, into ``build/``), then:
    journaled, closed and warm-restarted against their oracles;
 3. drives the serving path: ``ServeEngine`` on qwen2-0.5b at its full
    width and depth (24 layers, bf16 compute over fp32 weights made from the
-   seed), max_batch 8, s_max 1024, 32 KV pages; 4 requests of 512-token
-   prompts (two full prefix blocks), each the hot prompt at 70% (two of
+   seed), max_batch 8, s_max 1024, 32 KV pages; 4 requests of 264-token
+   prompts (one full prefix block), each the hot prompt at 70% (two of
    the four), 32 new tokens each; run serial, then pipelined, with the
    launch counts zeroed before the serial run and read after the
    pipelined one.  Both runs must
@@ -108,7 +108,25 @@ csrc`` (one ``nvcc`` per source, in parallel, into ``build/``), then:
    the end; (f) ``quantize_int8`` on 2^26 values bit-equal to the CPU's,
    its round trip within max|x|/127, and 50 steps of ``_ef_quantize``
    within max|g| of 50·g;
-6. replays one main-path call of each kernel: kernel and plain PyTorch
+6. drives the ssm, hybrid and audio families, the launch counts zeroed
+   before and read after: xlstm-350m, zamba2-1.2b and whisper-tiny at their
+   published widths and depths (fp32 weights from the seed, bf16 compute)
+   each served by ``ServeEngine(max_batch=8, s_max=512)`` (whisper: s_max
+   448, its decoder context), 4 requests of 64-token prompts, 8 new tokens
+   each, serially (zamba2 also pipelined, its tokens equal to the serial
+   run's), checked as step 5 checks granite's run (indexes against their
+   oracle, B7 a fixed count a model step, a decode step repeated from
+   copies of one cache bit-equal, the step's wall time against its
+   CUDA-graph replay); zamba2 trained by the launcher's ``Trainer`` at batch
+   2 x 1,024 and whisper at 8 x 448 tokens over 1,500 frames, as step 5
+   trains granite (timed steps, a profiled step, the loss falling on a
+   fixed batch); xlstm one loss and gradient step at 1 x 256, all finite,
+   and its chunked mLSTM against the step-by-step form on the card within
+   1e-5; and for each family a 2-layer model at full width in f32 on the
+   card and on the CPU with the same params, ``forward_train`` and three
+   decode steps with their caches within 1e-4, each decode step repeated on
+   the card bit-equal;
+7. replays one main-path call of each kernel: kernel and plain PyTorch
    version on the same CUDA tensors must agree (the tree kernels and the
    leaf probe bit for bit; the two attention kernels within 2 ulps of
    their dtype at the output's largest magnitude, on the path's tensors and
@@ -130,9 +148,12 @@ csrc`` (one ``nvcc`` per source, in parallel, into ``build/``), then:
    the count of HGMMA (wgmma) instructions in its built library, which
    must not be 0, and decode attention with step 1's count and the
    clusters of each size the card holds at once; flash attention (B6) and
-   decode attention (B7) also on step 5's granite calls (group 3), rows of
-   their own in the ``kernels`` line;
-7. prints ``{"ok": true, "device": {...}}`` as its last line.
+   decode attention (B7) also on step 5's granite calls (group 3) and on
+   step 6's zamba2 and whisper calls (group 1: zamba2's shared block,
+   whisper's encoder over 1,500 frames without causality, its
+   cross-attention decode over them), rows of their own in the ``kernels``
+   line;
+8. prints ``{"ok": true, "device": {...}}`` as its last line.
 
 Any failed check raises, so the script exits non-zero.  Without a CUDA card,
 or without the repository's ``src/repro_torch`` beside it, it exits 2 and
@@ -180,9 +201,9 @@ OCC_WARMUP, OCC_ROUNDS, UNIFORM_ROUNDS = 1, 3, 3
 # fewer keys: Zipf(1.0) traffic makes that forest retire its cold shards,
 # and each retirement re-inserts the moved keys densely into an emptied
 # range at about one retry pass per 6 keys, so its time grows with the
-# prefill (at 500,000 keys the warm-up ran past 690 s on an H100 80GB HBM3;
-# PERF.md section 4)
-FOREST_SHARDS, FOREST_PREFILL = 4, 50_000
+# prefill (at 500,000 keys the warm-up ran past 690 s on an H100 80GB HBM3,
+# at 50,000 its three retirements took 141 s; PERF.md section 4)
+FOREST_SHARDS, FOREST_PREFILL = 4, 20_000
 FOREST_WARMUP, FOREST_ROUNDS = 3, 10
 FOREST_STREAM_CAP, FOREST_STREAM_HALF = 128, 20_000  # scan_stream around splits[0]
 # sharded indexes without a model: steps of (publish, lookup, evict) calls
@@ -205,7 +226,9 @@ SERVE_KERNELS = TREE_KERNELS + ("decode_attention",)
 # serve phase: qwen2-0.5b at full width and depth
 SERVE_ARCH = "qwen2-0.5b"
 SERVE_ENGINE = dict(max_batch=8, s_max=1024, n_pages=32)
-SERVE_REQUESTS, SERVE_PROMPT, SERVE_MAX_NEW, SERVE_HOT_FRAC = 4, 512, 32, 0.7  # 2 of them hot
+# prompts of one full prefix block and 8 tokens (cut from 512 tokens to
+# keep the script's time in bounds: the engine prefills token by token)
+SERVE_REQUESTS, SERVE_PROMPT, SERVE_MAX_NEW, SERVE_HOT_FRAC = 4, 264, 32, 0.7  # 2 of them hot
 TRACED_REQUESTS, TRACED_MAX_NEW = 2, 8
 STEP_TIMING_STEPS = 20
 # train phase: the Trainer on qwen2-0.5b at full width and depth, as
@@ -245,6 +268,31 @@ DEDUP_BATCHES, DEDUP_WIDTH, DEDUP_FIRST_WIDTH, DEDUP_CAPACITY = 48, 4096, 512, 1
 DEDUP_HISTORY_FRAC, DEDUP_INBATCH_FRAC, DEDUP_ZIPF = 0.30, 0.05, 1.1
 DEDUP_MIN_TOKENS, DEDUP_MAX_TOKENS = 64, 512
 QUANT_N, EF_N, EF_STEPS = 1 << 26, 1 << 20, 50
+# ssm / hybrid / audio phase: xlstm-350m, zamba2-1.2b and whisper-tiny at
+# their published widths and depths, fp32 weights from the seed, bf16
+# compute.  Served: FAMILY_REQUESTS requests of FAMILY_PROMPT tokens (a cut:
+# the engine prefills token by token), FAMILY_MAX_NEW new each, serially
+# (zamba2 also pipelined); trained by the launcher's Trainer at
+# FAMILY_TRAIN's (batch, seq); xlstm one loss and gradient step at
+# XLSTM_GRAD_SHAPE (its step-by-step mLSTM keeps every step's (B, 4, 256,
+# 256) f32 memory for the backward pass)
+FAMILY_ARCHS = ("xlstm-350m", "zamba2-1.2b", "whisper-tiny")
+FAMILY_ENGINE = dict(max_batch=8, s_max=512, n_pages=32)
+FAMILY_S_MAX = {"whisper-tiny": 448}  # whisper's decoder context
+FAMILY_REQUESTS, FAMILY_PROMPT, FAMILY_MAX_NEW = 4, 64, 8
+FAMILY_PIPELINED = ("zamba2-1.2b",)
+FAMILY_TRAIN = {"zamba2-1.2b": (2, 1024), "whisper-tiny": (8, 448)}
+XLSTM_GRAD_SHAPE, XLSTM_CHUNK = (1, 256), 64
+CHUNKED_TOL = 1e-5  # atol and rtol of the chunked mLSTM against the step-by-step form
+# card against CPU: a 2-layer model at full width in f32 (TF32 off), the
+# same params on both, forward_train and FAMILY_CHECK_STEPS decode steps;
+# xlstm with an sLSTM every 2 blocks and zamba2 with its shared block after
+# 2 mamba layers, so that the 2 layers hold every kind of block
+FAMILY_CHECK = dict(layers=2, batch=2, seq=256, steps=3)
+FAMILY_CHECK_OVERRIDES = {"xlstm-350m": dict(slstm_every=2),
+                          "zamba2-1.2b": dict(shared_attn_every=2),
+                          "whisper-tiny": dict(enc_layers=2)}
+CARD_CPU_TOL = 1e-4  # atol and rtol: f32 sums in another order (the CPU tests' logit limit)
 
 
 def log(msg: str) -> None:
@@ -1618,13 +1666,27 @@ def reset_peak(torch, device) -> None:
         torch.cuda.reset_peak_memory_stats(device)
 
 
-def run_lm_serve(torch, core, lib, device, cfg):
-    """granite-moe-3b-a800m served at its published width and depth: one
-    serial run of the LM_HOT requests, checked as the serve phase checks
-    its runs; B7 launched once a layer a model step; one decode step run
-    twice from the same cache and tokens gives bit-equal logits; the step's
-    wall time against its CUDA-graph replay.  Returns the summary and the
-    run's last B7 call."""
+def clone_cache(cache):
+    """A copy of a decode cache (a dict of cache NamedTuples and tensors)."""
+    return {k: v.clone() if hasattr(v, "clone") else
+            type(v)(*(None if x is None else x.clone() for x in v)) for k, v in cache.items()}
+
+
+def cache_tensors(cache):
+    return [x for v in cache.values() for x in ((v,) if hasattr(v, "clone") else v)
+            if x is not None]
+
+
+def serve_arch(torch, core, lib, device, cfg, reqs, engine, max_new, b7_per_step, *,
+               pipelined=False):
+    """One arch served at its published width: a serial run of ``reqs``
+    (checked as the serve phase checks its runs); B7 launched
+    ``b7_per_step`` times a model step; one decode step run twice from
+    copies of the same cache with the same tokens gives bit-equal logits
+    and caches; the step's wall time against its CUDA-graph replay; with
+    ``pipelined``, a pipelined run too, whose tokens must equal the serial
+    run's.  Returns the summary and the serial run's last model step's B7
+    calls."""
     import repro_torch.serve as serve
     from repro_torch.models import backbone
     from repro_torch.models.params import count_params, init_params
@@ -1644,53 +1706,47 @@ def run_lm_serve(torch, core, lib, device, cfg):
         steps[0] += 1
         return forward_decode(*args, **kw)
 
-    reqs = lm_requests(cfg.vocab)
     before = launch_snapshot(lib)
-    attn.calls = collections.deque(maxlen=1)
+    attn.calls = collections.deque(maxlen=max(1, b7_per_step))
     backbone.forward_decode = counted
     try:
-        eng, run, _ = serve_run(torch, core, serve, cfg, params, device, pipelined=False,
-                                n_requests=len(reqs), max_new=LM_MAX_NEW, on_stream_sync=True,
-                                reqs=reqs, engine=LM_SERVE_ENGINE)
+        eng, run, tokens = serve_run(torch, core, serve, cfg, params, device, pipelined=False,
+                                     n_requests=len(reqs), max_new=max_new, on_stream_sync=True,
+                                     reqs=reqs, engine=engine)
     finally:
         backbone.forward_decode = forward_decode
     launches = launch_delta(lib, before)
-    recorded = attn.calls[-1]
+    recorded = list(attn.calls)
     attn.calls = None
-    del params  # the engine keeps its compute-dtype copies
-    log(f"lm serve: {run['wall_s']:.1f}s, {steps[0]} model steps")
-    if launches["decode_attention"] != cfg.n_layers * steps[0]:
-        raise AssertionError(f"lm serve: decode_attention launched {launches['decode_attention']} "
-                             f"times in {steps[0]} model steps, not {cfg.n_layers} a step")
-    if run["cache_hit_blocks"] <= 0:
-        raise AssertionError("lm serve: the prefix cache was never hit")
+    log(f"{cfg.name} serve: {run['wall_s']:.1f}s, {steps[0]} model steps")
+    if launches["decode_attention"] != b7_per_step * steps[0]:
+        raise AssertionError(f"{cfg.name} serve: decode_attention launched "
+                             f"{launches['decode_attention']} times in {steps[0]} model steps, "
+                             f"not {b7_per_step} a step")
 
-    # the same decode step twice from the same cache and tokens
+    # the same decode step twice, from copies of the same cache
     tok = torch.as_tensor(np.random.default_rng(SEED).integers(0, cfg.vocab, eng.max_batch),
                           dtype=torch.int32, device=device)
-    pos = LM_PROMPT + LM_MAX_NEW
+    pos = len(reqs[0][1]) + max_new
     b7 = attn.launches
-    first, _ = backbone.forward_decode(eng.params, eng.cache, tok, pos, cfg)
+    first, c1 = backbone.forward_decode(eng.params, clone_cache(eng.cache), tok, pos, cfg)
     per_step = attn.launches - b7
-    second, _ = backbone.forward_decode(eng.params, eng.cache, tok, pos, cfg)
-    if per_step != cfg.n_layers:
-        raise AssertionError(f"lm serve: one decode step launched decode_attention {per_step} "
-                             f"times, not {cfg.n_layers}")
+    second, c2 = backbone.forward_decode(eng.params, clone_cache(eng.cache), tok, pos, cfg)
+    if per_step != b7_per_step:
+        raise AssertionError(f"{cfg.name} serve: one decode step launched decode_attention "
+                             f"{per_step} times, not {b7_per_step}")
     if not bool(torch.isfinite(first).all()):
-        raise AssertionError("lm serve: a decode step gave non-finite logits")
-    if not torch.equal(first, second):
-        raise AssertionError(f"lm serve: the same decode step gave other logits (max |diff| "
-                             f"{float((first - second).abs().max())})")
+        raise AssertionError(f"{cfg.name} serve: a decode step gave non-finite logits")
+    if not (torch.equal(first, second)
+            and all(torch.equal(a, b) for a, b in zip(cache_tensors(c1), cache_tensors(c2)))):
+        raise AssertionError(f"{cfg.name} serve: the same decode step gave other logits or "
+                             f"caches (max |diff| {float((first - second).abs().max())})")
+    del first, second, c1, c2
     step = decode_step_timing(torch, backbone, eng) if on_card else None
     peak = peak_bytes(torch, device)
-    del eng, first, second
+    del eng
     summary = {
-        "config": {"arch": LM_ARCH, "layers": cfg.n_layers, "d_model": cfg.d_model,
-                   "heads": cfg.n_heads, "kv_heads": cfg.n_kv, "experts": cfg.n_experts,
-                   "top_k": cfg.top_k, "d_ff_expert": cfg.d_ff_expert, "vocab": cfg.vocab,
-                   "dtype": cfg.dtype, "params": count_params(backbone.model_spec(cfg)),
-                   **LM_SERVE_ENGINE, "requests": len(reqs), "prompt": LM_PROMPT,
-                   "hot": list(LM_HOT), "max_new": LM_MAX_NEW, "seed": SEED},
+        "params": count_params(backbone.model_spec(cfg)),
         "param_init_s": init_s,
         "serial": run,
         "model_steps": steps[0],
@@ -1700,18 +1756,48 @@ def run_lm_serve(torch, core, lib, device, cfg):
         "launches": launches,
         "max_memory_allocated": peak,
     }
+    if pipelined:
+        before = launch_snapshot(lib)
+        eng, piped, piped_tokens = serve_run(torch, core, serve, cfg, params, device,
+                                             pipelined=True, n_requests=len(reqs),
+                                             max_new=max_new, reqs=reqs, engine=engine)
+        del eng
+        log(f"{cfg.name} serve pipelined: {piped['wall_s']:.1f}s")
+        if piped_tokens != tokens:
+            raise AssertionError(f"{cfg.name} serve: serial and pipelined runs gave other tokens")
+        summary["pipelined"] = piped
+        summary["launches_pipelined"] = launch_delta(lib, before)
+        summary["pipelined_tokens_equal_serial"] = True
     return summary, recorded
 
 
-def run_lm_train(torch, lib, device):
-    """granite-moe-3b-a800m trained at its published width and depth: the
-    Trainer that ``python -m repro_torch.launch.train --arch
-    granite-moe-3b-a800m --batch 2 --seq 1024`` builds, its train step
-    driven directly (``Trainer.run`` would save ~54 GB of fp32 params and
-    AdamW state at its end): LM_WARMUP_STEPS + LM_TIMED_STEPS steps, B6
-    once a layer a step (none in the backward), one profiled step, then
-    LM_FALL_STEPS steps at a constant LM_FALL_LR on one fixed batch, whose
-    loss must fall.  Returns the summary and the last timed B6 call."""
+def run_lm_serve(torch, core, lib, device, cfg):
+    """granite-moe-3b-a800m served at its published width and depth: one
+    serial run of the LM_HOT requests (``serve_arch``; B7 once a layer a
+    model step), whose prefix cache must be hit.  Returns the summary and
+    the run's last B7 call."""
+    reqs = lm_requests(cfg.vocab)
+    summary, recorded = serve_arch(torch, core, lib, device, cfg, reqs, LM_SERVE_ENGINE,
+                                   LM_MAX_NEW, cfg.n_layers)
+    if summary["serial"]["cache_hit_blocks"] <= 0:
+        raise AssertionError("lm serve: the prefix cache was never hit")
+    summary["config"] = {"arch": LM_ARCH, "layers": cfg.n_layers, "d_model": cfg.d_model,
+                         "heads": cfg.n_heads, "kv_heads": cfg.n_kv, "experts": cfg.n_experts,
+                         "top_k": cfg.top_k, "d_ff_expert": cfg.d_ff_expert, "vocab": cfg.vocab,
+                         "dtype": cfg.dtype, **LM_SERVE_ENGINE, "requests": len(reqs), "prompt": LM_PROMPT,
+                         "hot": list(LM_HOT), "max_new": LM_MAX_NEW, "seed": SEED}
+    return summary, recorded[-1]
+
+
+def train_arch(torch, lib, device, arch, batch_size, seq, b6_per_forward):
+    """One arch trained at its published width and depth: the Trainer that
+    ``python -m repro_torch.launch.train --arch <arch> --batch <batch_size>
+    --seq <seq>`` builds, its train step driven directly (``Trainer.run``
+    would end by saving the fp32 params and AdamW state):
+    LM_WARMUP_STEPS + LM_TIMED_STEPS steps, B6 ``b6_per_forward`` times a
+    step (none in the backward), one profiled step, then LM_FALL_STEPS
+    steps at a constant LM_FALL_LR on one fixed batch, whose loss must
+    fall.  Returns the summary and the last timed step's B6 calls."""
     import tempfile
 
     from repro_torch.data import make_data_iter
@@ -1724,8 +1810,7 @@ def run_lm_train(torch, lib, device):
     sync = (lambda: torch.cuda.synchronize(device)) if on_card else (lambda: None)
     to_dev = lambda batch: {k: torch.from_numpy(x).to(device) for k, x in batch.items()}
     with tempfile.TemporaryDirectory() as ckpt:
-        argv = ["--arch", LM_ARCH, "--batch", str(LM_TRAIN_BATCH), "--seq", str(LM_TRAIN_SEQ),
-                "--ckpt", ckpt]
+        argv = ["--arch", arch, "--batch", str(batch_size), "--seq", str(seq), "--ckpt", ckpt]
         reset_peak(torch, device)
         t0 = time.perf_counter()
         trainer = launch.build_trainer(launch.parse_args(argv), device)
@@ -1733,9 +1818,9 @@ def run_lm_train(torch, lib, device):
         init_s = time.perf_counter() - t0
         cfg = trainer.cfg
         after_init = peak_bytes(torch, device)
-        it = make_data_iter(cfg, LM_TRAIN_BATCH, LM_TRAIN_SEQ)
+        it = make_data_iter(cfg, batch_size, seq)
         before = launch_snapshot(lib)
-        flash.calls = collections.deque(maxlen=1)
+        flash.calls = collections.deque(maxlen=max(1, b6_per_forward))
         times, losses = [], []
         for i in range(LM_WARMUP_STEPS + LM_TIMED_STEPS):
             batch = to_dev(next(it))
@@ -1746,20 +1831,20 @@ def run_lm_train(torch, lib, device):
             loss = float(out.metrics["loss"])  # waits for the step
             dt = time.perf_counter() - t0
             trainer.params, trainer.opt = out.params, out.opt_state
-            if flash.launches - b6 != cfg.n_layers:
-                raise AssertionError(f"lm train: step {i} launched flash_attention "
-                                     f"{flash.launches - b6} times, not {cfg.n_layers} a forward")
+            if flash.launches - b6 != b6_per_forward:
+                raise AssertionError(f"{arch} train: step {i} launched flash_attention "
+                                     f"{flash.launches - b6} times, not {b6_per_forward} a forward")
             if not (np.isfinite(loss) and np.isfinite(float(out.metrics["grad_norm"]))):
-                raise AssertionError(f"lm train: step {i}: loss {loss}, grad norm "
+                raise AssertionError(f"{arch} train: step {i}: loss {loss}, grad norm "
                                      f"{float(out.metrics['grad_norm'])}")
             losses.append(loss)
             if i >= LM_WARMUP_STEPS:
                 times.append(dt)
         launches = launch_delta(lib, before)
-        recorded = detached(flash.calls[-1])
+        recorded = [detached(c) for c in flash.calls]
         flash.calls = None
         peak = peak_bytes(torch, device)
-        log(f"lm train: p50 {np.percentile(times, 50) * 1e3:.1f} ms/step, peak "
+        log(f"{arch} train: p50 {np.percentile(times, 50) * 1e3:.1f} ms/step, peak "
             f"{(peak or 0) / 1e9:.1f} GB")
 
         batch = to_dev(next(it))
@@ -1776,7 +1861,7 @@ def run_lm_train(torch, lib, device):
         del prof
 
         fall_step = make_train_step(cfg, lr_peak=LM_FALL_LR, schedule=constant_lr, donate=True)
-        fixed = to_dev(next(make_data_iter(cfg, LM_TRAIN_BATCH, LM_TRAIN_SEQ, seed=SEED + 1)))
+        fixed = to_dev(next(make_data_iter(cfg, batch_size, seq, seed=SEED + 1)))
         fall = []
         for i in range(LM_FALL_STEPS):
             out = fall_step(trainer.params, trainer.opt, fixed, i)
@@ -1785,28 +1870,41 @@ def run_lm_train(torch, lib, device):
     if on_card:
         torch.cuda.empty_cache()
     if not all(np.isfinite(fall)) or not fall[-1] < fall[0]:
-        raise AssertionError(f"lm train: the loss did not fall on a fixed batch: {fall}")
+        raise AssertionError(f"{arch} train: the loss did not fall on a fixed batch: {fall}")
     p50 = float(np.percentile(times, 50))
     summary = {
-        "config": {"arch": LM_ARCH, "layers": cfg.n_layers, "d_model": cfg.d_model,
-                   "experts": cfg.n_experts, "top_k": cfg.top_k, "remat": cfg.remat,
-                   "batch": LM_TRAIN_BATCH, "seq": LM_TRAIN_SEQ,
+        "config": {"arch": arch, "layers": cfg.n_layers, "d_model": cfg.d_model,
+                   "remat": cfg.remat, "batch": batch_size, "seq": seq,
                    "schedule": "warmup_cosine, peak 3e-4 (the launcher's)", "seed": SEED},
         "init_s": init_s,
         "max_memory_after_init": after_init,
         "losses": losses,
         "sec_per_step": times,
         "sec_per_step_p50": p50,
-        "tokens_per_s": LM_TRAIN_BATCH * LM_TRAIN_SEQ * len(times) / float(np.sum(times)),
+        "tokens_per_s": batch_size * seq * len(times) / float(np.sum(times)),
         "max_memory_allocated": peak,
         "launches": launches,
         "profiled_step": {"wall_ms": profiled_wall_ms, "device_busy_ms": busy_ms,
                           "device_events": n_events, "top_device_ms": top_events,
+                          "busy_share_of_profiled_step": busy_ms / profiled_wall_ms,
                           "idle_share_of_profiled_step": 1.0 - busy_ms / profiled_wall_ms,
                           "idle_share_vs_p50_step": 1.0 - busy_ms / (p50 * 1e3)},
         "loss_fall": {"steps": LM_FALL_STEPS, "lr": LM_FALL_LR, "losses": fall},
     }
     return summary, recorded
+
+
+def run_lm_train(torch, lib, device):
+    """granite-moe-3b-a800m trained at its published width and depth
+    (``train_arch`` at batch LM_TRAIN_BATCH x LM_TRAIN_SEQ; B6 once a layer
+    a step).  Returns the summary and the last timed B6 call."""
+    from repro_torch.configs import get_config
+
+    cfg = get_config(LM_ARCH)
+    summary, recorded = train_arch(torch, lib, device, LM_ARCH, LM_TRAIN_BATCH, LM_TRAIN_SEQ,
+                                   cfg.n_layers)
+    summary["config"].update(experts=cfg.n_experts, top_k=cfg.top_k)
+    return summary, recorded[-1]
 
 
 def run_mla_path(torch, device):
@@ -2042,6 +2140,197 @@ def run_lm_family_path(torch, core, lib, device, zipf_keys):
     out["seconds"] = time.perf_counter() - t0
     log(f"lm phase: {out['seconds']:.1f}s, peaks {peaks}")
     return out, {"flash_attention": b6_call, "decode_attention": b7_call}
+
+
+# ----------------------------------------------------------------------------
+# ssm, hybrid and audio phase
+# ----------------------------------------------------------------------------
+
+
+def family_requests(vocab: int):
+    """(rid, prompt, is_hot) from the seed: FAMILY_REQUESTS distinct
+    FAMILY_PROMPT-token prompts (shorter than a PAGE block: no prefix hit)."""
+    rng = np.random.default_rng(SEED)
+    return [(rid, rng.integers(0, vocab, FAMILY_PROMPT).tolist(), False)
+            for rid in range(FAMILY_REQUESTS)]
+
+
+def b6_per_forward(cfg) -> int:
+    """B6 launches in one forward of a family arch: zamba2's shared block
+    invocations, whisper's encoder and decoder self-attention layers."""
+    if cfg.family == "hybrid":
+        return cfg.n_layers // cfg.shared_attn_every
+    if cfg.family == "audio":
+        return cfg.enc_layers + cfg.n_layers
+    return 0  # xLSTM attends nowhere
+
+
+def b7_per_step(cfg) -> int:
+    """B7 launches in one decode step (whisper: self and cross a layer)."""
+    return 2 * cfg.n_layers if cfg.family == "audio" else b6_per_forward(cfg)
+
+
+def run_xlstm_grad(torch, device, cfg):
+    """xlstm-350m at full width: one loss and gradient at XLSTM_GRAD_SHAPE
+    (all of them finite), then ``mlstm_train_chunked`` (chunk XLSTM_CHUNK)
+    against ``mlstm_train`` on block 0's cell and a seeded f32 input, within
+    CHUNKED_TOL."""
+    from repro_torch.data import make_data_iter
+    from repro_torch.models import backbone, xlstm
+    from repro_torch.models.params import init_params
+    from repro_torch.optim.adamw import tree_leaves, tree_map
+
+    b, t = XLSTM_GRAD_SHAPE
+    reset_peak(torch, device)
+    params = init_params(backbone.model_spec(cfg), device, SEED)
+    batch = {k: torch.from_numpy(x).to(device)
+             for k, x in next(make_data_iter(cfg, b, t, seed=SEED)).items()}
+    t0 = time.perf_counter()
+    live = tree_map(lambda p: p.detach().requires_grad_(), params)
+    loss, _ = backbone.loss_fn(live, batch, cfg)
+    grads = torch.autograd.grad(loss, tree_leaves(live))
+    finite = bool(torch.isfinite(loss)) and all(bool(torch.isfinite(g).all()) for g in grads)
+    grad_s = time.perf_counter() - t0  # the checks above wait for the step
+    if not finite:
+        raise AssertionError(f"xlstm: loss {float(loss)} or a grad is not finite")
+    peak = peak_bytes(torch, device)
+    del live, grads
+    f32 = cfg.replace(dtype="float32")
+    cell = {k: v[0] for k, v in params["mblocks"]["cell"].items()}
+    gen = torch.Generator(device=device).manual_seed(SEED)
+    x = torch.randn((b, t, cfg.d_model), generator=gen, device=device)
+    with torch.no_grad():
+        seq = xlstm.mlstm_train(cell, x, f32)
+        chunked = xlstm.mlstm_train_chunked(cell, x, f32, chunk=XLSTM_CHUNK)
+        err = (chunked - seq).abs()
+        if not bool((err <= CHUNKED_TOL + CHUNKED_TOL * seq.abs()).all()):
+            raise AssertionError(f"xlstm: the chunked mLSTM differs from the step-by-step "
+                                 f"form by {float(err.max())}")
+        seq_ms = time_ms(torch, lambda: xlstm.mlstm_train(cell, x, f32), 3, warmup=1)
+        chunked_ms = time_ms(torch, lambda: xlstm.mlstm_train_chunked(cell, x, f32,
+                                                                      chunk=XLSTM_CHUNK), 3, warmup=1)
+    loss = float(loss.detach())
+    log(f"xlstm grad: {grad_s:.1f}s, loss {loss:.4f}, peak {(peak or 0) / 1e9:.1f} GB")
+    return {"batch": b, "seq": t, "loss": loss, "grad_leaves": len(tree_leaves(params)),
+            "loss_and_grad_s": grad_s, "max_memory_allocated": peak,
+            "chunked": {"chunk": XLSTM_CHUNK, "dtype": "float32", "max_abs_err": float(err.max()),
+                        "max_abs_want": float(seq.abs().max()), "tolerance": CHUNKED_TOL,
+                        "step_by_step_ms": seq_ms, "chunked_ms": chunked_ms}}
+
+
+def run_card_vs_cpu(torch, device, arch):
+    """A FAMILY_CHECK["layers"]-layer model of ``arch`` at full width in f32
+    with the same params on the card and on the CPU: ``forward_train`` and
+    FAMILY_CHECK["steps"] decode steps (every cache entry too) within
+    CARD_CPU_TOL; each decode step, repeated on the card from a copy of the
+    same cache, is bit-equal."""
+    from repro_torch.configs import get_config
+    from repro_torch.data import make_data_iter
+    from repro_torch.models import backbone
+    from repro_torch.models.params import init_params
+
+    cfg = get_config(arch).replace(n_layers=FAMILY_CHECK["layers"], dtype="float32",
+                                   **FAMILY_CHECK_OVERRIDES[arch])
+    cpu = torch.device("cpu")
+    params = init_params(backbone.model_spec(cfg), cpu, SEED)
+    batch = next(make_data_iter(cfg, FAMILY_CHECK["batch"], FAMILY_CHECK["seq"], seed=SEED))
+    outs = []
+    for dev in (cpu, device):
+        p = tree_to(params, dev)
+        b = {k: torch.from_numpy(x).to(dev) for k, x in batch.items()}
+        extra = {k: v for k, v in b.items() if k != "tokens"} or None
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            got = [backbone.forward_train(p, b["tokens"], cfg, extra)]
+            cache = backbone.init_cache(cfg, FAMILY_CHECK["batch"], FAMILY_CHECK["seq"], dev)
+            for pos in range(FAMILY_CHECK["steps"]):
+                tok = b["tokens"][:, pos]
+                again = (backbone.forward_decode(p, clone_cache(cache), tok, pos, cfg)
+                         if dev is device else None)
+                lg, cache = backbone.forward_decode(p, cache, tok, pos, cfg)
+                got.append(lg)
+                if again is not None and not (torch.equal(again[0], lg) and all(
+                        torch.equal(x, y)
+                        for x, y in zip(cache_tensors(again[1]), cache_tensors(cache)))):
+                    raise AssertionError(f"{arch}: decode step {pos} repeated on the card differs")
+        outs.append((got, cache_tensors(cache), time.perf_counter() - t0))
+    (want, want_c, cpu_s), (got, got_c, card_s) = outs
+    worst = {}
+    for name, xs, ys in (("logits", got, want), ("cache", got_c, want_c)):
+        for i, (x, y) in enumerate(zip(xs, ys)):
+            x = x.cpu().float()
+            y = y.float()
+            err = (x - y).abs()
+            if not bool((err <= CARD_CPU_TOL + CARD_CPU_TOL * y.abs()).all()):
+                raise AssertionError(f"{arch}: card and CPU differ in {name}[{i}] by "
+                                     f"{float(err.max())} (max |cpu| {float(y.abs().max())})")
+            worst[name] = max(worst.get(name, 0.0), float(err.max()))
+    return {"config": {"layers": cfg.n_layers, **FAMILY_CHECK_OVERRIDES[arch],
+                       "dtype": cfg.dtype, "batch": FAMILY_CHECK["batch"],
+                       "seq": FAMILY_CHECK["seq"], "decode_steps": FAMILY_CHECK["steps"]},
+            "tolerance": CARD_CPU_TOL, "max_abs_err": worst,
+            "max_abs_logit": float(max(float(y.abs().max()) for y in want)),
+            "decode_repeat_bit_equal": True, "cpu_s": cpu_s, "card_s": card_s}
+
+
+def tree_to(tree, device):
+    if isinstance(tree, dict):
+        return {k: tree_to(v, device) for k, v in tree.items()}
+    return tree.to(device)
+
+
+def run_family_path(torch, core, lib, device):
+    """The ssm, hybrid and audio phase; its launch counts are zeroed before
+    it and read after it.  Each arch is served (``serve_arch``); zamba2 and
+    whisper are trained (``train_arch``), xlstm takes one loss and gradient
+    step (``run_xlstm_grad``); each runs a 2-layer full-width model on the
+    card against the CPU (``run_card_vs_cpu``).  Returns the summary and the
+    B6 and B7 calls recorded for the kernel rows: zamba2's and whisper's
+    last B6 calls (whisper's encoder one, not causal over its 1,500
+    frames), zamba2's B7 call (group 1) and whisper's two (self and cross,
+    ``kv_len`` = 1,500)."""
+    from repro_torch.configs import get_config
+
+    t0 = time.perf_counter()
+    lib.reset_counts()
+    out, recorded = {}, {}
+    for arch in FAMILY_ARCHS:
+        t1 = time.perf_counter()
+        cfg = get_config(arch)
+        engine = dict(FAMILY_ENGINE, s_max=FAMILY_S_MAX.get(arch, FAMILY_ENGINE["s_max"]))
+        part = {"config": {"arch": arch, "family": cfg.family, "layers": cfg.n_layers,
+                           "d_model": cfg.d_model, "heads": cfg.n_heads, "kv_heads": cfg.n_kv,
+                           "vocab": cfg.vocab, "dtype": cfg.dtype, **engine,
+                           "requests": FAMILY_REQUESTS, "prompt": FAMILY_PROMPT,
+                           "max_new": FAMILY_MAX_NEW, "seed": SEED}}
+        part["serve"], b7 = serve_arch(torch, core, lib, device, cfg, family_requests(cfg.vocab),
+                                       engine, FAMILY_MAX_NEW, b7_per_step(cfg),
+                                       pipelined=arch in FAMILY_PIPELINED)
+        if arch in FAMILY_TRAIN:
+            part["train"], b6 = train_arch(torch, lib, device, arch, *FAMILY_TRAIN[arch],
+                                           b6_per_forward(cfg))
+            if cfg.family == "audio":  # the encoder's call; B7 over the frames and the self one
+                b6 = [c for c in b6 if not c[3]["causal"]]
+                cross = [c for c in b7 if c[1].shape[2] == cfg.enc_frames]
+                recorded[f"decode_attention@{arch} self"] = \
+                    [c for c in b7 if c[1].shape[2] != cfg.enc_frames][-1]
+                b7 = cross
+            recorded[f"flash_attention@{arch}"] = b6[-1]
+            recorded[f"decode_attention@{arch}"] = b7[-1]
+        else:
+            part["grad"] = run_xlstm_grad(torch, device, cfg)
+        part["card_vs_cpu"] = run_card_vs_cpu(torch, device, arch)
+        part["seconds"] = time.perf_counter() - t1
+        out[arch] = part
+        log(f"family phase {arch}: {part['seconds']:.1f}s, card vs CPU "
+            f"{part['card_vs_cpu']['max_abs_err']}")
+    out["launches"] = launch_snapshot(lib)
+    for name in ("decode_attention", "flash_attention", "descend_probe", "elim_combine"):
+        if out["launches"][name] <= 0:
+            raise AssertionError(f"family phase: {name} never launched")
+    out["seconds"] = time.perf_counter() - t0
+    log(f"family phase: {out['seconds']:.1f}s")
+    return out, recorded
 
 
 # ----------------------------------------------------------------------------
@@ -2408,10 +2697,15 @@ def leaf_probe_replay(torch, lp_kernel, lp_ops, descend_call):
 
 def kernel_report(torch, mods, libs, summary, recorded, serve_summary, serve_recorded,
                   per_call, train_summary, train_recorded, paths, forest_recorded,
-                  lm_summary, lm_recorded):
+                  lm_summary, lm_recorded, family_summary, family_recorded):
     """Replay one main-path call per kernel against its plain version, and
     B6 and B7 also on the LM phase's granite-moe-3b-a800m calls
-    (``lm_recorded``; their rows' ``launches`` are that phase's).
+    (``lm_recorded``; their rows' ``launches`` are that phase's) and on the
+    family phase's zamba2-1.2b and whisper-tiny calls (``family_recorded``:
+    group 1; whisper's encoder B6 call, not causal over 1,500 frames, and
+    its cross-attention B7 call over them, with its self-attention call
+    replayed beside it; their rows' ``launches`` are the arch's serve or
+    train run's).
     ``libs``: kernel name -> built library; ``per_call``: the kernels one
     call of B7, K3, K2 and K4 ran (``one_kernel_calls``); ``paths``: the
     occ, forest, sharded-index, durable and LM phases' summaries (their
@@ -2585,8 +2879,9 @@ def kernel_report(torch, mods, libs, summary, recorded, serve_summary, serve_rec
         cases, grad_err = flash_replays(torch, fa_kernel, fa_ops, fa_ref, recorded)
         want = fa_ref.attention_ref(q, k, v, **kw)
         sdpa = torch.nn.functional.scaled_dot_product_attention
-        lib_ms = graph_ms(torch, lambda: sdpa(q, k, v, is_causal=True, enable_gqa=True))
-        causal_ops = 2.0 * b * h * sq * sq * d  # the causal half of 4·B·H·S²·D
+        causal = kw["causal"]
+        lib_ms = graph_ms(torch, lambda: sdpa(q, k, v, is_causal=causal, enable_gqa=True))
+        ops = 4.0 * b * h * sq * sq * d * (0.5 if causal else 1.0)  # causal: half of 4·B·H·S²·D
         hgmma = sass_count(libs["flash_attention"], "HGMMA")
         if q.dtype == torch.bfloat16 and hgmma == 0:
             raise AssertionError("flash_attention: no HGMMA in the built library: "
@@ -2600,10 +2895,10 @@ def kernel_report(torch, mods, libs, summary, recorded, serve_summary, serve_rec
             (2 * q.numel() + 2 * k.numel()) * q.element_size(),
             {"q": list(q.shape), "kv": list(k.shape), "dtype": str(q.dtype), **kw},
             lib_ms=lib_ms, tol=flash_tol(torch, want), launches=launches,
-            ops=causal_ops, ops_per_s=OPS_PER_S[str(q.dtype)],
+            ops=ops, ops_per_s=OPS_PER_S[str(q.dtype)],
             extra={"max_abs_want": float(want.abs().max()), "replays": cases,
                    "grad_max_abs_err": grad_err, "group": h // k.shape[1],
-                   "library": "scaled_dot_product_attention(is_causal=True, enable_gqa=True)",
+                   "library": f"scaled_dot_product_attention(is_causal={causal}, enable_gqa=True)",
                    "sass_hgmma": hgmma},
         )
 
@@ -2619,6 +2914,35 @@ def kernel_report(torch, mods, libs, summary, recorded, serve_summary, serve_rec
     flash_row("flash_attention", train_recorded, train_summary["launches"]["flash_attention"])
     flash_row(f"flash_attention@{LM_ARCH}", lm_recorded["flash_attention"],
               lm_summary["train"]["launches"]["flash_attention"])
+
+    # B6 and B7 at the family phase's shapes (group 1): zamba2-1.2b's shared
+    # block; whisper-tiny's encoder (not causal, 1,500 frames) and its
+    # cross-attention over them, its self-attention call beside it
+    def decode_side(call):
+        q, k, v, kw = call
+        got = da_kernel.decode_attention_cuda(q, k, v, kw["kv_len"], kw["sm_scale"])
+        want = da_ref.decode_attention_ref(q, k, v, kw["kv_len"], sm_scale=kw["sm_scale"])
+        err, tol = max_abs_err(torch, (got,), (want,)), ulps_at_max(torch, want, DECODE_ULPS)
+        if err > tol:
+            raise AssertionError(f"decode_attention self call: kernel differs from its plain "
+                                 f"version (max |err| {err} > {tol})")
+        sdpa = torch.nn.functional.scaled_dot_product_attention
+        kv, vv = k[:, :, :kw["kv_len"]], v[:, :, :kw["kv_len"]]
+        return {"q": list(q.shape), "cache": list(k.shape), "kv_len": kw["kv_len"],
+                "max_abs_err": err, "tolerance": tol,
+                "ms": graph_ms(torch, lambda: da_kernel.decode_attention_cuda(
+                    q, k, v, kw["kv_len"], kw["sm_scale"])),
+                "library_ms": graph_ms(torch, lambda: sdpa(q[:, :, None], kv, vv,
+                                                           enable_gqa=True))}
+
+    for arch in FAMILY_TRAIN:
+        part = family_summary[arch]
+        flash_row(f"flash_attention@{arch}", family_recorded[f"flash_attention@{arch}"],
+                  part["train"]["launches"]["flash_attention"])
+        side = ({"self_call": decode_side(family_recorded[f"decode_attention@{arch} self"])}
+                if f"decode_attention@{arch} self" in family_recorded else {})
+        decode_row(f"decode_attention@{arch}", family_recorded[f"decode_attention@{arch}"],
+                   part["serve"]["launches"]["decode_attention"], side)
 
     # B5 leaf_probe, standalone over the tree path's leaf rows
     lk, lv, lq, (p_slot, p_val), probe_launches = leaf_probe_replay(
@@ -2717,14 +3041,20 @@ def main() -> int:
                                                  zipf_keys)
     print(json.dumps({"lm_family_path": lm_summary, "card": smi}), flush=True)
 
-    # 6. every kernel against its plain version at main-path shapes
+    # 6. the ssm, hybrid and audio families: xlstm-350m, zamba2-1.2b and
+    # whisper-tiny served, zamba2 and whisper trained, xlstm's gradient, each
+    # family's card against the CPU
+    family_summary, family_recorded = run_family_path(torch, core, lib, torch.device("cuda"))
+    print(json.dumps({"family_path": family_summary, "card": smi}), flush=True)
+
+    # 7. every kernel against its plain version at main-path shapes
     rows = kernel_report(
         torch, (td_kernel, td_ref, ec_kernel, ec_ref, rs_kernel, rs_ref, da_kernel, da_ref,
                 fa_kernel, fa_ops, fa_ref, lp_kernel, lp_ops, lp_ref),
         libs, summary, recorded, serve_summary, serve_recorded, per_call, train_summary,
         train_recorded, {"occ": occ_summary, "forest": forest_summary, "index": index_summary,
-                         "durable": durable_summary, "lm": lm_summary},
-        forest_recorded, lm_summary, lm_recorded,
+                         "durable": durable_summary, "lm": lm_summary, "family": family_summary},
+        forest_recorded, lm_summary, lm_recorded, family_summary, family_recorded,
     )
     print(json.dumps({"kernels": rows}), flush=True)
     print(smi, flush=True)

@@ -1,9 +1,6 @@
-"""Architecture registry of the port.
-
-The archs whose family the port runs are here: the decoder-only LMs, dense,
-MoE (MLA included) and VLM.  Any other arch of the JAX package's registry
-raises ``NotImplementedError`` naming the roadmap item that ports its
-family."""
+"""Architecture registry of the port: every arch of the JAX package's
+registry (the decoder-only LMs, dense, MoE with MLA, VLM; the ssm, hybrid
+and audio families), in its order."""
 from __future__ import annotations
 
 import importlib
@@ -16,20 +13,17 @@ _MODULES = {
     "yi-9b": "yi_9b",
     "yi-34b": "yi_34b",
     "h2o-danube-1.8b": "h2o_danube_1_8b",
+    "xlstm-350m": "xlstm_350m",
     "granite-moe-3b-a800m": "granite_moe_3b_a800m",
     "deepseek-v3-671b": "deepseek_v3_671b",
+    "whisper-tiny": "whisper_tiny",
+    "zamba2-1.2b": "zamba2_1_2b",
 }
-_NOT_PORTED = ("xlstm-350m", "whisper-tiny", "zamba2-1.2b")
 
 ARCH_IDS = list(_MODULES)
 
 
 def get_config(arch: str) -> ModelConfig:
-    if arch in _NOT_PORTED:
-        raise NotImplementedError(
-            f"{arch}: its family is not ported yet (ROADMAP.md queue A, item 6: "
-            "the ssm, hybrid and audio families)"
-        )
     if arch not in _MODULES:
         raise KeyError(f"unknown arch {arch!r}")
     mod = importlib.import_module(f"repro_torch.configs.{_MODULES[arch]}")

@@ -12,7 +12,9 @@ layer leaves; a tied unembedding reads ``embed/tok``, so there is no second
 copy to carry) and returns the same tree of tensors on ``device``;
 ``cache_from_numpy`` takes the decode cache (``{"layers": KVCache(k, v)}``
 with numpy leaves, and ``"dense_layers"`` too for an MoE arch with dense
-first layers; an MLA cache has ``v=None``).  ``params_to_numpy`` / ``cache_to_numpy`` go the other
+first layers; an MLA cache has ``v=None``; the recurrent families'
+``SSMCache`` / ``XLSTMCache`` / ``SLSTMCache`` entries and whisper's bare
+``enc_out`` array).  ``params_to_numpy`` / ``cache_to_numpy`` go the other
 way.  ``opt_state_from_numpy`` / ``opt_state_to_numpy`` carry AdamW's
 ``OptState(m, v, count)`` (a NamedTuple or a dict of those fields), so a
 JAX ``(params, OptState)`` crosses whole.  bfloat16 arrays
@@ -30,6 +32,8 @@ import torch
 
 from repro_torch.core.abtree import TreeState, TreeStats
 from repro_torch.models.attention import KVCache
+from repro_torch.models.ssm import SSMCache
+from repro_torch.models.xlstm import SLSTMCache, XLSTMCache
 from repro_torch.optim.adamw import OptState
 
 _DTYPES = dict(
@@ -116,29 +120,34 @@ def params_to_numpy(tree):
     return tensor_to_numpy(tree)
 
 
-def _kv_parts(kv):
-    if hasattr(kv, "_asdict"):
-        kv = kv._asdict()
-    return kv["k"], kv["v"]
+# the decode-cache kinds, by their field names
+_CACHE_KINDS = {frozenset(t._fields): t for t in (KVCache, SSMCache, XLSTMCache, SLSTMCache)}
 
 
 def cache_from_numpy(cache, device="cpu"):
-    """The port's decode cache from ``{name: KVCache(k, v)}`` (a NamedTuple
-    or a dict with ``k`` and ``v`` per entry) of numpy arrays."""
+    """The port's decode cache from the JAX package's: ``{name: entry}``,
+    each entry a ``KVCache``, ``SSMCache``, ``XLSTMCache`` or
+    ``SLSTMCache`` (a NamedTuple, or a dict of its fields) of numpy arrays,
+    or a bare array (whisper's ``enc_out``)."""
     out = {}
-    for name, kv in cache.items():
-        k, v = _kv_parts(kv)
-        out[name] = KVCache(tensor_from_numpy(k, device),
-                            None if v is None else tensor_from_numpy(v, device))
+    for name, entry in cache.items():
+        if not (hasattr(entry, "_asdict") or isinstance(entry, dict)):
+            out[name] = tensor_from_numpy(entry, device)
+            continue
+        parts = _as_dict(entry)
+        kind = _CACHE_KINDS[frozenset(parts)]
+        out[name] = kind(**{f: None if a is None else tensor_from_numpy(a, device)
+                            for f, a in parts.items()})
     return out
 
 
 def cache_to_numpy(cache):
-    """``{name: {"k": array, "v": array}}`` from the port's decode cache."""
+    """``{name: {field: array}}`` from the port's decode cache (a bare
+    tensor entry as a bare array)."""
     return {
-        name: {"k": tensor_to_numpy(kv.k),
-               "v": None if kv.v is None else tensor_to_numpy(kv.v)}
-        for name, kv in cache.items()
+        name: tensor_to_numpy(entry) if isinstance(entry, torch.Tensor) else
+        {f: None if t is None else tensor_to_numpy(t) for f, t in entry._asdict().items()}
+        for name, entry in cache.items()
     }
 
 

@@ -19,8 +19,14 @@ MLA (DeepSeek-V3's latent attention) trains through the plain attention
 at full width) is no instance of the flash kernel, and the JAX package
 calls no Pallas kernel there.  Its decode is the absorbed form over a cache
 of the compressed latent alone, ``(B, S, kv_lora + rope_head)`` per layer
-(``KVCache(latent, None)``).  Cross-attention waits for the audio family
-(ROADMAP.md queue A, item 6).
+(``KVCache(latent, None)``).
+
+Cross-attention (whisper's decoder over the encoder output) trains through
+the plain attention too: its queries and keys differ in length (T tokens
+over ``enc_frames`` frames), which the flash kernel does not take, and the
+JAX package calls no Pallas kernel there.  A one-token decode over the
+encoder output is the decode-attention kernel's function at ``kv_len`` =
+the frames, and goes through its wrapper.
 """
 from __future__ import annotations
 
@@ -230,3 +236,34 @@ def mla_cache_spec(cfg, batch, s_max, layers=None):
     if layers:
         shape = (layers,) + shape
     return KVCache(k=TensorSpec(shape, cdt(cfg)), v=None)
+
+
+# ---------------------------------------------------------------------------
+# Cross-attention (whisper decoder → encoder output)
+# ---------------------------------------------------------------------------
+
+
+def cross_spec(cfg):
+    d, h, dh = cfg.d_model, cfg.n_heads, cfg.d_head
+    return {
+        "wq": P((d, h, dh), ("embed", "heads", None)),
+        "wk": P((d, h, dh), ("embed", "heads", None)),
+        "wv": P((d, h, dh), ("embed", "heads", None)),
+        "wo": P((h, dh, d), ("heads", None, "embed")),
+    }
+
+
+def cross_apply(p, x, enc, cfg):
+    """x: (B, S, d) attends over enc: (B, T_enc, d), no mask.  One query row
+    (a decode step) goes to ``decode_attention`` over all T_enc columns."""
+    dt = cdt(cfg)
+    b, s, _ = x.shape
+    q = _proj(x, p["wq"], dt)  # (B, H, S, D)
+    k = _proj(enc, p["wk"], dt)  # (B, H, T_enc, D)
+    v = _proj(enc, p["wv"], dt)
+    if s == 1:
+        o = decode_attention(q[:, :, 0].contiguous(), k.contiguous(), v.contiguous())[:, :, None]
+    else:
+        o = attention_ref(q, k, v, causal=False)
+    hd = o.shape[1] * o.shape[3]
+    return o.transpose(1, 2).reshape(b, s, hd) @ p["wo"].to(dt).reshape(hd, -1)

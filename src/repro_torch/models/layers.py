@@ -135,3 +135,22 @@ def unembed_apply(p, x, cfg):
     w = p["tok"].T if cfg.tie_embeddings else p["unembed"]
     # logits in fp32 for a stable softmax/CE
     return x.float() @ w.float()
+
+
+def sinusoidal_positions(n: int, d: int) -> np.ndarray:
+    """(n, d) float32: sin of the angles in the even columns, cos in the odd
+    (numpy, as the JAX package computes it, so the tables are bit-equal)."""
+    pos = np.arange(n, dtype=np.float32)[:, None]
+    dim = np.arange(0, d, 2, dtype=np.float32)[None, :]
+    angle = pos / np.power(10000.0, dim / d)
+    out = np.zeros((n, d), np.float32)
+    out[:, 0::2] = np.sin(angle)
+    out[:, 1::2] = np.cos(angle)
+    return out
+
+
+@functools.lru_cache(maxsize=16)
+def position_table(n: int, d: int, device: torch.device) -> torch.Tensor:
+    """``sinusoidal_positions(n, d)`` on ``device``, made once: whisper's
+    decode reads one row of the 8,192-row table a step."""
+    return torch.from_numpy(sinusoidal_positions(n, d)).to(device)

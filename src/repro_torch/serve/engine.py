@@ -30,8 +30,12 @@ is what JAX's asynchronous dispatch gave the reference.
 Behaviour kept from the reference, faults included (ROADMAP.md queue C):
 a model step writes the new K/V of EVERY slot at one shared position, so a
 prefill (one slot's token, zeros in the other rows) overwrites the other
-running slots' cache columns at the positions it passes; and the fused
-decode runs every active slot at the largest active position.
+running slots' cache columns at the positions it passes; the fused decode
+runs every active slot at the largest active position; and in the
+recurrent families (xLSTM, zamba2's mamba2 layers) every model step
+advances every slot's recurrent state, so a prefill moves the other
+running slots' states on by the zero token, and an admitted slot starts
+from the state its previous request left.
 """
 from __future__ import annotations
 

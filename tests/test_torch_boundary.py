@@ -45,7 +45,7 @@ def test_port_files_found():
     assert {"abtree.py", "rounds.py", "forest.py", "elimination.py", "chip_smoke.py", "_lib.py",
             "engine.py", "pages.py", "backbone.py", "attention.py", "trainer.py", "step.py",
             "adamw.py", "manager.py", "pipeline.py", "tree_kernel_ab.py", "durable.py",
-            "faults.py"} <= names
+            "faults.py", "xlstm.py", "ssm.py"} <= names
 
 
 @pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(ROOT)))
@@ -216,6 +216,36 @@ def test_gqa_decode_reaches_the_decode_kernel(monkeypatch):
     monkeypatch.setattr(da_ref, "decode_attention_ref", plain_trap)
     with pytest.raises(_Reached):
         attention.gqa_decode(p, torch.zeros((1, 1, 128)), cfg, cache, 2)
+
+
+def test_cross_apply_decode_reaches_the_decode_kernel(monkeypatch):
+    """Whisper's one-token cross-attention over the encoder output is the
+    decode kernel's function at kv_len = the frames: with every tensor
+    reporting CUDA, ``cross_apply`` of one query row calls the kernel
+    launcher over all the frames and never a plain version."""
+    from repro_torch.models import attention
+    from repro_torch.models.config import ModelConfig
+    from repro_torch.models.params import init_params
+
+    cfg = ModelConfig(name="t", family="audio", n_layers=1, d_model=128, n_heads=2, n_kv=2,
+                      d_ff=8, vocab=8, dtype="float32", use_rope=False)
+    p = init_params(attention.cross_spec(cfg), "cpu")
+    seen = []
+
+    def kernel_spy(q, k, v, kv_len, sm_scale):
+        seen.append((tuple(q.shape), tuple(k.shape), k.is_contiguous(), kv_len))
+        raise _Reached
+
+    def plain_trap(*a, **k):
+        raise AssertionError("cross_apply: CUDA input reached a plain version")
+
+    monkeypatch.setattr(_lib, "on_cuda", lambda t: True)
+    monkeypatch.setattr(da_kernel, "decode_attention_cuda", kernel_spy)
+    monkeypatch.setattr(da_ref, "decode_attention_ref", plain_trap)
+    monkeypatch.setattr(attention, "attention_ref", plain_trap)
+    with pytest.raises(_Reached):
+        attention.cross_apply(p, torch.zeros((3, 1, 128)), torch.zeros((3, 15, 128)), cfg)
+    assert seen == [((3, 2, 64), (3, 2, 15, 64), True, 15)]
 
 
 def test_gqa_train_reaches_the_flash_attention_kernel(monkeypatch):

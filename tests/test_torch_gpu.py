@@ -467,7 +467,14 @@ def test_scan_round_past_cap_8192_equals_oracle(cuda):
      (1, 14, 2, 1024, 64, 543, torch.bfloat16),
      (1, 14, 2, 1024, 64, 1024, torch.bfloat16),
      (2, 32, 2, 600, 128, 517, torch.bfloat16),  # G = 16 at D = 128, two passes of 8 rows
-     (1, 64, 1, 64, 32, 64, torch.bfloat16)],  # G·D = 2048 at D = 32: eight passes
+     (1, 64, 1, 64, 32, 64, torch.bfloat16),  # G·D = 2048 at D = 32: eight passes
+     # group 1: zamba2-1.2b's shared block (32 heads of 64) and whisper-tiny's
+     # self-attention (6 heads, s_max 448); whisper's cross-attention over
+     # all 1,500 encoder frames (kv_len == S)
+     (8, 32, 32, 512, 64, 300, torch.bfloat16),
+     (8, 6, 6, 448, 64, 73, torch.bfloat16),
+     (8, 6, 6, 1500, 64, 1500, torch.bfloat16),
+     (2, 6, 6, 1500, 64, 1500, torch.float32)],
 )
 def test_decode_attention_kernel_equals_plain(cuda, b, h, kh, s, d, kv_len, dtype):
     """Cluster kernel against the plain version on the same CUDA tensors:
@@ -588,7 +595,13 @@ def _poisoned(shape, dtype, gen, cuda):
      (2, 7, 1, 333, 80, True, 100, torch.bfloat16),
      (1, 14, 2, 1000, 128, True, 37, torch.bfloat16),
      (2, 4, 2, 130, 32, True, 48, torch.bfloat16),
-     (1, 6, 2, 300, 64, False, 70, torch.bfloat16)],  # window without causality
+     (1, 6, 2, 300, 64, False, 70, torch.bfloat16),  # window without causality
+     # group 1: whisper-tiny's encoder (6 heads, 1,500 frames: ragged, not
+     # causal), its decoder, zamba2-1.2b's shared block (32 heads)
+     (2, 6, 6, 1500, 64, False, 0, torch.bfloat16),
+     (2, 6, 6, 448, 64, True, 0, torch.bfloat16),
+     (1, 32, 32, 1024, 64, True, 0, torch.bfloat16),
+     (1, 6, 6, 1500, 64, False, 0, torch.float32)],
 )
 def test_flash_attention_kernel_equals_plain(cuda, b, h, kh, s, d, causal, window, dtype):
     """Forward kernel against the plain version on the same CUDA tensors:
@@ -785,6 +798,83 @@ def test_train_step_on_card_matches_cpu(cuda):
     lr = float(a.metrics["lr"])
     for x, y in zip(tree_leaves(b_.params), tree_leaves(a.params)):
         assert float((x.cpu() - y).abs().max()) <= 2 * lr + 1e-6
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_cross_apply_decode_on_card_equals_plain(cuda, dtype):
+    """Whisper's one-token cross-attention over 1,500 encoder frames: on the
+    card through the decode kernel, against the plain decode attention on
+    the same projected CUDA tensors (bf16 within 2 ulps at the output's
+    largest magnitude: both round one f32 result once; f32 within 1e-5),
+    then through the output projection."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import attention
+    from repro_torch.models.params import init_params
+
+    cfg = get_config("whisper-tiny").replace(dtype=str(dtype).split(".")[1])
+    p = init_params(attention.cross_spec(cfg), cuda, seed=4)
+    gen = torch.Generator(device="cpu").manual_seed(4)
+    x = torch.randn((8, 1, cfg.d_model), generator=gen).to(cuda, dtype)
+    enc = torch.randn((8, cfg.enc_frames, cfg.d_model), generator=gen).to(cuda, dtype)
+    before = da_kernel.DECODE_ATTENTION.launches
+    got = attention.cross_apply(p, x, enc, cfg)
+    assert da_kernel.DECODE_ATTENTION.launches == before + 1
+    proj = lambda t, w: attention._proj(t, w, dtype)
+    q, k, v = proj(x, p["wq"]), proj(enc, p["wk"]), proj(enc, p["wv"])
+    o = decode_attention_ref(q[:, :, 0], k, v)
+    kern = da_kernel.decode_attention_cuda(q[:, :, 0].contiguous(), k.contiguous(),
+                                           v.contiguous(), cfg.enc_frames, cfg.d_head ** -0.5)
+    torch.cuda.synchronize()
+    if dtype == torch.bfloat16:
+        assert float((kern.float() - o.float()).abs().max()) <= _ulps_at_max(o)
+    else:  # f32: within 1e-5, as the f32 cases of the kernel's own test
+        torch.testing.assert_close(kern, o, atol=1e-5, rtol=1e-5)
+    hd = cfg.n_heads * cfg.d_head
+    want = o.reshape(8, 1, hd) @ p["wo"].to(dtype).reshape(hd, -1)
+    assert got.shape == want.shape == (8, 1, cfg.d_model)
+    tol = 1e-4 if dtype == torch.float32 else 0.05
+    torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+
+
+@pytest.mark.parametrize("arch", ["xlstm-350m", "zamba2-1.2b", "whisper-tiny"])
+def test_recurrent_and_audio_families_on_card_match_cpu(cuda, arch):
+    """Reduced xlstm, zamba2 and whisper (f32): ``forward_train`` and three
+    ``forward_decode`` steps on the card (B6 and B7 where the family
+    attends) against the same on the CPU within 1e-4 (f32 sums in another
+    order), every cache entry too."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import backbone, reduced
+    from repro_torch.models.params import init_params
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = reduced(get_config(arch))
+    params = init_params(backbone.model_spec(cfg), "cpu", seed=5)
+    rng = np.random.default_rng(5)
+    tokens = torch.as_tensor(rng.integers(0, cfg.vocab, (2, 32)), dtype=torch.int32)
+    extra = ({"frames": torch.as_tensor(rng.standard_normal((2, cfg.enc_frames, cfg.d_model)),
+                                        dtype=torch.float32)} if cfg.family == "audio" else None)
+    outs = {}
+    for dev in ("cpu", cuda):
+        p = _to(params, dev)
+        ex = None if extra is None else _to(extra, dev)
+        _lib.reset_counts()
+        logits = [backbone.forward_train(p, tokens.to(dev), cfg, ex)]
+        cache = backbone.init_cache(cfg, 2, 16, dev)
+        for pos in range(3):
+            lg, cache = backbone.forward_decode(p, cache, tokens[:, pos].to(dev), pos, cfg)
+            logits.append(lg)
+        outs[str(dev)] = (logits, cache)
+        if dev != "cpu" and cfg.family != "ssm":
+            assert fa_kernel.FLASH_ATTENTION.launches > 0
+            assert da_kernel.DECODE_ATTENTION.launches > 0
+    (la, ca), (lb, cb) = outs["cpu"], outs[str(cuda)]
+    for x, y in zip(lb, la):
+        torch.testing.assert_close(x.cpu(), y, atol=1e-4, rtol=1e-4)
+    assert set(cb) == set(ca)
+    for name in ca:
+        xs, ys = ((c[name],) if isinstance(c[name], torch.Tensor) else c[name] for c in (cb, ca))
+        for x, y in zip(xs, ys):
+            torch.testing.assert_close(x.cpu(), y, atol=1e-4, rtol=1e-4)
 
 
 def test_abtree_on_card_matches_oracle(cuda):

@@ -5,8 +5,7 @@ Layer functions first (norms, rotary embedding, MLPs, embeddings), then
 with the JAX package's initialized params carried across by
 ``repro_torch.interop``: logits and caches within atol/rtol 1e-4 (f32
 products summed in another order).  The configs, the param spec trees
-(the MoE, MLA and VLM archs' too) and the refusals of what is not ported
-are checked too."""
+(every arch's) and the dispatch on an unknown family are checked too."""
 import dataclasses
 
 import numpy as np
@@ -46,21 +45,30 @@ def test_configs_equal_jax():
     assert dataclasses.asdict(t) == dataclasses.asdict(j)
 
 
-@pytest.mark.parametrize("arch", ["xlstm-350m", "zamba2-1.2b", "whisper-tiny"])
-def test_other_families_name_the_roadmap_item(arch):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        get_config(arch)
+def _spec_equal_jax(arch):
+    ts = backbone.model_spec(get_config(arch))
+    js = jbackbone.model_spec(jget_config(arch))
+    flat_t = {p: (s.shape, s.axes, s.init, s.scale) for p, s in tparams._walk(ts)}
+    flat_j = {p: (s.shape, s.axes, s.init, s.scale) for p, s in jparams._walk(js)}
+    assert flat_t == flat_j, arch
+    assert tparams.count_params(ts) == jparams.count_params(js)
+    return tparams.count_params(ts)
+
+
+@pytest.mark.parametrize("arch,n_params", [("xlstm-350m", 233_252_000),
+                                           ("zamba2-1.2b", 1_178_862_464),
+                                           ("whisper-tiny", 36_448_128)])
+def test_ssm_hybrid_audio_spec_and_param_count_equal_jax(arch, n_params):
+    """The families ported last: their spec trees (xLSTM's mblocks and
+    sblocks, zamba2's mamba stack and shared block, whisper's encoder and
+    decoder stacks) and their parameter counts equal JAX's."""
+    assert _spec_equal_jax(arch) == n_params
 
 
 def test_spec_tree_and_param_count_equal_jax():
     for arch in ("qwen2-0.5b", "h2o-danube-1.8b", "granite-moe-3b-a800m", "deepseek-v3-671b",
-                 "internvl2-2b"):
-        ts = backbone.model_spec(get_config(arch))
-        js = jbackbone.model_spec(jget_config(arch))
-        flat_t = {p: (s.shape, s.axes, s.init, s.scale) for p, s in tparams._walk(ts)}
-        flat_j = {p: (s.shape, s.axes, s.init, s.scale) for p, s in jparams._walk(js)}
-        assert flat_t == flat_j, arch
-        assert tparams.count_params(ts) == jparams.count_params(js)
+                 "internvl2-2b", "xlstm-350m", "zamba2-1.2b", "whisper-tiny"):
+        _spec_equal_jax(arch)
     assert tparams.count_params(backbone.model_spec(get_config("qwen2-0.5b"))) == 494_032_768
 
 
@@ -171,11 +179,21 @@ def test_init_is_seeded_per_leaf_path():
     assert torch.equal(a["ln_f"]["scale"], torch.ones(t.d_model))
 
 
-def test_training_and_other_families_refused():
-    """Training is ported (``tests/test_torch_train.py``); the other
-    families are refused on both paths."""
-    t, _ = _cfg()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        backbone.forward_train({}, torch.zeros((1, 2), dtype=torch.int64), t.replace(family="ssm"))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        backbone.model_spec(t.replace(family="audio"))
+def test_unknown_family_raises_key_error():
+    """Every family dispatches through a table, as JAX's does: a family
+    with no entry raises ``KeyError`` on every path, as JAX's dict lookup
+    does."""
+    t, j = _cfg()
+    for cfg, bb in ((t, backbone), (j, jbackbone)):
+        odd = cfg.replace(family="tabular")
+        with pytest.raises(KeyError, match="tabular"):
+            bb.model_spec(odd)
+        with pytest.raises(KeyError, match="tabular"):
+            bb.cache_spec(odd, 1, 4)
+    with pytest.raises(KeyError, match="tabular"):
+        backbone.forward_train({}, torch.zeros((1, 2), dtype=torch.int64), t.replace(family="tabular"))
+    with pytest.raises(KeyError, match="tabular"):
+        backbone.forward_decode({}, {}, torch.zeros(1, dtype=torch.int64), 0,
+                                t.replace(family="tabular"))
+    with pytest.raises(KeyError, match="unknown arch"):
+        get_config("tabular-1b")
