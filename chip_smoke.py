@@ -58,6 +58,22 @@ csrc`` (one ``nvcc`` per source, in parallel, into ``build/``), then:
    recovery); occ (the paper's p-OCC) on a tree of 2.5·10^5 keys, Zipf
    and uniform rounds beside uniform elim rounds; the sharded indexes
    journaled, closed and warm-restarted against their oracles;
+   then the obs phase (``run_obs_path``), over histories the paths above
+   recorded: the port's linearizability witness replays the tree path's
+   flight recorder from the empty tree (its rounds, lanes, eliminated ops
+   and final contents equal to what the path issued and the tree counted),
+   ``python -m repro_torch.obs.witness`` accepts the exported JSONL, and a
+   swapped eliminated insert / delete pair and a dropped delete lane are
+   rejected; a ``DurableABTree`` from empty with its recorder on, crashed
+   ``mid_manifest`` and recovered on the card, whose forensics sidecar
+   replays to the recovered contents, one of its prefix states; the tree
+   path's traced rounds written as a Chrome trace, valid, with report
+   totals equal to the traced breakdown, and two traced rounds of the
+   static forest (valid, per-shard tracks, ``report --json`` 0); and the
+   ``torch.profiler`` op audit of the search and scan phases on the tree
+   path's tree (no sort in the scan phases; K1 and K3 once a search, K2
+   and K4 in the scans, each counted by its wrapper and seen by the
+   profiler);
 3. drives the serving path: ``ServeEngine`` on qwen2-0.5b at its full
    width and depth (24 layers, bf16 compute over fp32 weights made from the
    seed), max_batch 8, s_max 1024, 32 KV pages; 4 requests of 264-token
@@ -219,6 +235,10 @@ DURABLE_FAULT_ROUNDS = 7  # eio at the 2nd and 4th commit, a torn segment at the
 DURABLE_OCC_PREFILL = KEY_RANGE // 8  # cut from KEY_RANGE // 2 to keep the script's time in bounds
 DURABLE_OCC_ZIPF, DURABLE_UNIFORM = 1, 3
 DURABLE_INDEX_GROUP = 4
+# obs phase: OBS_CRASH_FIRST lanes into an empty DurableABTree, then
+# OBS_CRASH_ROUNDS rounds of BATCH, before its crash; OBS_FOREST_ROUNDS
+# traced rounds of the static forest
+OBS_CRASH_FIRST, OBS_CRASH_ROUNDS, OBS_FOREST_ROUNDS = 4_096, 7, 2
 COMMIT_HISTS = ("commit_capture_s", "journal_flush_s", "manifest_commit_s", "commit_latency_s",
                 "journal_gc_s")
 TREE_KERNELS = ("descend_probe", "frontier_compact", "elim_combine", "range_scan")
@@ -343,7 +363,9 @@ def check_round(out, want, ops, range_code, round_name: str) -> None:
                 raise AssertionError(f"{round_name}: range lane {i} rows differ from the oracle")
 
 
-TREE_CFG = dict(capacity=1 << 16, b=11, a=2, max_height=24)  # the PAPER preset
+def prefill_starts(n_keys: int) -> list:
+    """The first lane of each prefill round."""
+    return [0] + list(range(PREFILL_FIRST_BATCH, n_keys, PREFILL_BATCH))
 
 
 def prefill(tree, oracle, core, rng, n_keys: int, key_range: int, name: str) -> float:
@@ -352,7 +374,7 @@ def prefill(tree, oracle, core, rng, n_keys: int, key_range: int, name: str) -> 
     then rounds of PREFILL_BATCH.  Returns the seconds it took."""
     keys = rng.choice(key_range, size=n_keys, replace=False).astype(np.int64)
     t0 = time.perf_counter()
-    starts = [0] + list(range(PREFILL_FIRST_BATCH, n_keys, PREFILL_BATCH))
+    starts = prefill_starts(n_keys)
     for i, j in zip(starts, starts[1:] + [n_keys]):
         chunk = keys[i:j]
         ops = np.full(chunk.size, core.OP_INSERT, np.int32)
@@ -368,13 +390,18 @@ def prefill(tree, oracle, core, rng, n_keys: int, key_range: int, name: str) -> 
 def run_main_path(torch, core, lib, zipf_keys):
     """Prefill + mixed rounds on the card, oracle-checked.  Returns the
     run's summary, the launch arguments each kernel got in the last round,
-    and the tree and its oracle (the occ phase starts from them)."""
+    the tree and its oracle (the occ phase starts from them), and the
+    history the obs phase replays: the flight recorder of every round from
+    the empty tree up to the recorder-off rounds, what those rounds issued
+    (rounds, non-NOP lanes), the tree's eliminated count over them, the
+    oracle's contents after them, and the first traced rounds' tracer."""
+    from repro_torch.configs.abtree import PAPER
     from repro_torch.core.oracle import check_invariants
     from repro_torch.obs.recorder import Recorder
     from repro_torch.obs.tracer import NULL_TRACER, Tracer
 
     dev = torch.device("cuda")
-    cfg = core.TreeConfig(**TREE_CFG)
+    cfg = PAPER
     rng = np.random.default_rng(SEED)
     tree = core.ABTree(cfg, mode="elim")
     oracle = core.DictOracle()
@@ -382,7 +409,9 @@ def run_main_path(torch, core, lib, zipf_keys):
     lib.reset_counts()
 
     n_prefill = KEY_RANGE // 2
+    eliminated0 = tree.stats()["eliminated"]
     prefill_s = prefill(tree, oracle, core, rng, n_prefill, KEY_RANGE, "tree")
+    issued = {"rounds": len(prefill_starts(n_prefill)), "lanes": n_prefill}
 
     m = tree.metrics
     counters = {n: lib.COUNTERS[n] for n in TREE_KERNELS}
@@ -404,6 +433,8 @@ def run_main_path(torch, core, lib, zipf_keys):
             out = tree.apply_round(ops, keys, vals, scan_cap=128)
             torch.cuda.synchronize()
             ms.append((time.perf_counter() - t1) * 1e3)
+            issued["rounds"] += 1
+            issued["lanes"] += int((ops != core.OP_NOP).sum())
             if last:
                 for cname, c in counters.items():
                     recorded[cname], c.calls = c.calls, None
@@ -415,24 +446,29 @@ def run_main_path(torch, core, lib, zipf_keys):
 
     def traced_breakdown(name):
         """Per-round span totals over TRACED_ROUNDS rounds with the phase
-        tracer on (it fences every span, so these rounds are not timed)."""
-        tree.tracer = Tracer()
+        tracer on (it fences every span, so these rounds are not timed),
+        and the tracer."""
+        tracer = tree.tracer = Tracer()
         drive(TRACED_ROUNDS, name)
         phase = {}
-        for ev in tree.tracer.events:
+        for ev in tracer.events:
             if ev["ph"] == "X":
                 phase[ev["name"]] = phase.get(ev["name"], 0.0) + ev["dur"] / 1e3 / TRACED_ROUNDS
         tree.tracer = NULL_TRACER
-        return phase
+        return phase, tracer
 
     drive(WARMUP, "warm-up")
     round_ms, work = drive(ROUNDS, "measured", record_last=True)
-    traced_on = traced_breakdown("traced")
+    traced_on, tracer = traced_breakdown("traced")
+    history = {"recorder": tree.recorder, **issued,
+               "eliminated": tree.stats()["eliminated"] - eliminated0, "state": oracle.items(),
+               "tracer": tracer, "traced_ms_per_round": traced_on,
+               "scan_frontier": tree._scan_frontier}
     # the flight recorder is on by default (as in the JAX engine); the same
     # traffic with it off shows what it costs per round.
     tree.recorder = Recorder(enabled=False)
     round_ms_off, _ = drive(RECORDER_OFF_ROUNDS, "recorder-off")
-    traced_off = traced_breakdown("traced recorder-off")
+    traced_off, _ = traced_breakdown("traced recorder-off")
     launches = {n: c.launches for n, c in counters.items()}
     large_scan, recorded["large_cap_scan"] = large_cap_scan(torch, tree, oracle, counters)
     log(f"scan_round cap {LARGE_SCAN_CAP}: {large_scan['wall_ms']:.1f} ms, "
@@ -472,7 +508,7 @@ def run_main_path(torch, core, lib, zipf_keys):
         "traced_ms_per_round_recorder_off": traced_off,
         "large_cap_scan": large_scan,
     }
-    return summary, recorded, tree, oracle
+    return summary, recorded, tree, oracle, history
 
 
 def large_cap_scan(torch, tree, oracle, counters):
@@ -655,9 +691,10 @@ def forest_run(torch, core, lib, zipf_keys, *, auto: bool, n_prefill: int, recor
     its sweeps and re-insertions, from the forest's own tracer spans.  With
     ``record`` (a dict), the first K1 and K3 launch of the first measured
     round go into it."""
+    from repro_torch.configs.abtree import PAPER
     from repro_torch.core import ABForest, check_forest_invariants
 
-    forest = ABForest(n_shards=FOREST_SHARDS, cfg=core.TreeConfig(**TREE_CFG),
+    forest = ABForest(n_shards=FOREST_SHARDS, cfg=PAPER,
                       key_space=(0, KEY_RANGE), auto_repartition=auto)
     oracle = core.DictOracle()
     rng = np.random.default_rng(SEED + 3)
@@ -689,7 +726,7 @@ def forest_run(torch, core, lib, zipf_keys, *, auto: bool, n_prefill: int, recor
         raise AssertionError(f"{name}: contents differ from the oracle")
     log(f"{name}: prefill {prefill_s:.1f}s, rounds {rounds_s:.1f}s, "
         f"{len(actions)} repartition actions, S = {forest.n_shards}")
-    summary = {"config": {"n_shards": FOREST_SHARDS, **TREE_CFG, "key_space": [0, KEY_RANGE],
+    summary = {"config": {"n_shards": FOREST_SHARDS, **PAPER._asdict(), "key_space": [0, KEY_RANGE],
                           "auto_repartition": auto, "prefill_keys": n_prefill, "batch": BATCH,
                           "warmup": FOREST_WARMUP, "rounds": FOREST_ROUNDS},
                "prefill_s": prefill_s, "rounds_s": rounds_s, "warmup": round_summary(warm),
@@ -714,8 +751,9 @@ def run_forest_path(torch, core, lib, zipf_keys):
     ``scan_stream`` of cap FOREST_STREAM_CAP over FOREST_STREAM_HALF keys
     either side of its first split point, which chains shard cursors, must
     equal ``DictOracle.range``.  The launch counts are zeroed before the
-    first run and read after the scan.  Returns the summary and the
-    recorded calls."""
+    first run and read after the scan.  Returns the summary, the recorded
+    calls, and the static forest and its oracle (the obs phase traces two
+    more of its rounds)."""
     lib.reset_counts()
     auto, _, _ = forest_run(torch, core, lib, zipf_keys, auto=True, n_prefill=FOREST_PREFILL)
     recorded = {}
@@ -732,7 +770,8 @@ def run_forest_path(torch, core, lib, zipf_keys):
                              "wall_ms": (time.perf_counter() - t0) * 1e3}
     if got != oracle.range(lo, hi):
         raise AssertionError(f"forest scan_stream over [{lo}, {hi}) differs from the oracle")
-    return {"auto_repartition": auto, "static": static, "launches": launch_counts(lib)}, recorded
+    return ({"auto_repartition": auto, "static": static, "launches": launch_counts(lib)}, recorded,
+            forest, oracle)
 
 
 def index_knobs(durable_dir=None) -> dict:
@@ -929,17 +968,18 @@ def run_durable_path(torch, core, lib, zipf_keys, volatile) -> dict:
     journaled, closed and warm-restarted.  The launch counts are zeroed
     before and read after the whole phase; the volatile tree path's rounds
     of this run (``volatile``) stand beside the durable ones."""
+    from repro_torch.configs.abtree import PAPER
     from repro_torch.core.oracle import check_invariants
     from repro_torch.obs.recorder import Recorder
     from repro_torch.serve.pages import PrefixIndex, SessionIndex
 
-    cfg = core.TreeConfig(**TREE_CFG)
+    cfg = PAPER
     base, mount = journal_dir()
     log(f"durable phase: journals under {mount}")
     lib.reset_counts()
     t_phase = time.perf_counter()
     seconds = {}
-    out = {"config": {**TREE_CFG, "key_range": KEY_RANGE, "prefill_keys": KEY_RANGE // 2,
+    out = {"config": {**PAPER._asdict(), "key_range": KEY_RANGE, "prefill_keys": KEY_RANGE // 2,
                       "occ_prefill_keys": DURABLE_OCC_PREFILL, "batch": BATCH,
                       "warmup": DURABLE_WARMUP, "rounds": DURABLE_ROUNDS,
                       "group_commit_every": DURABLE_GROUP, "group_rounds": DURABLE_GROUP_ROUNDS,
@@ -1141,6 +1181,292 @@ def run_durable_path(torch, core, lib, zipf_keys, volatile) -> dict:
     out["seconds"] = {**seconds, "phase": time.perf_counter() - t_phase}
     out["launches"] = launch_counts(lib)
     log(f"durable phase: {out['seconds']}")
+    return out
+
+
+# ----------------------------------------------------------------------------
+# obs phase
+# ----------------------------------------------------------------------------
+
+
+def swap_eliminated_pair(records, core):
+    """A copy of ``records`` (shared but for one record) in which the first
+    mixed round with an elimination segment has the results of one of its
+    insert / delete pairs swapped, where the two differ.  Segment lanes are
+    packed slots: shard s's point lanes in arrival order."""
+    for idx, rec in enumerate(records):
+        if rec.get("kind") != "round" or core.OP_RANGE not in rec["ops"]:
+            continue
+        point = [i for i, op in enumerate(rec["ops"])
+                 if op in (core.OP_FIND, core.OP_INSERT, core.OP_DELETE)]
+        for note in rec.get("elim") or []:
+            for seg in note["segments"]:
+                lanes = [point[x] for x in seg["lanes"]] if rec["n_shards"] == 1 else []
+                if any(rec["keys"][i] != seg["key"] for i in lanes):
+                    raise AssertionError(f"record {idx}: segment lanes {seg['lanes']} are not "
+                                         f"key {seg['key']}'s")
+                ins = [i for i in lanes if rec["ops"][i] == core.OP_INSERT]
+                dels = [i for i in lanes if rec["ops"][i] == core.OP_DELETE]
+                for i in ins:
+                    for j in dels:
+                        if (rec["results"][i], rec["found"][i]) != (rec["results"][j],
+                                                                    rec["found"][j]):
+                            bad = dict(rec, results=list(rec["results"]),
+                                       found=list(rec["found"]))
+                            for f in ("results", "found"):
+                                bad[f][i], bad[f][j] = bad[f][j], bad[f][i]
+                            return records[:idx] + [bad] + records[idx + 1:], {
+                                "record": idx, "round": rec["round"], "key": seg["key"],
+                                "lanes": [i, j]}
+    raise AssertionError("no mixed round with an eliminated insert / delete pair to swap")
+
+
+def drop_delete_lane(records, core):
+    """A copy of ``records`` (shared but for one record) without the first
+    delete lane of a mixed round that found its key when a later point lane
+    of the history reads or writes that key (so the history without it
+    cannot be legal).  Range lanes after it move down one index."""
+    later = collections.Counter()
+    for rec in records:
+        if rec.get("kind") == "round":
+            later.update(k for op, k in zip(rec["ops"], rec["keys"])
+                         if op not in (core.OP_NOP, core.OP_RANGE))
+    for idx, rec in enumerate(records):
+        if rec.get("kind") != "round":
+            continue
+        mixed = core.OP_RANGE in rec["ops"]
+        for i, (op, k) in enumerate(zip(rec["ops"], rec["keys"])):
+            if op not in (core.OP_NOP, core.OP_RANGE):
+                later[k] -= 1
+            if mixed and op == core.OP_DELETE and rec["found"][i] and later[k] > 0:
+                bad = dict(rec)
+                for f in ("ops", "keys", "vals", "results", "found"):
+                    bad[f] = rec[f][:i] + rec[f][i + 1:]
+                if rec.get("scans"):
+                    bad["scans"] = {str(int(x) - (int(x) > i)): rows
+                                    for x, rows in rec["scans"].items()}
+                return records[:idx] + [bad] + records[idx + 1:], {
+                    "record": idx, "round": rec["round"], "key": k, "lane": i}
+    raise AssertionError("no found delete of a key the history touches again")
+
+
+def run_obs_path(torch, core, lib, zipf_keys, tree, history, forest, forest_oracle) -> dict:
+    """The obs phase on the card, over histories the paths above recorded:
+    (a) the port's witness replays the tree path's flight recorder from the
+    empty tree (rounds, lanes, eliminated ops and final contents equal to
+    what the path issued and the tree counted), and ``python -m
+    repro_torch.obs.witness`` accepts its exported JSONL; (b) a swapped
+    eliminated insert / delete pair and a dropped delete lane are rejected;
+    (c) a fresh ``DurableABTree(PAPER)`` with its recorder on, OBS_CRASH_FIRST
+    lanes then OBS_CRASH_ROUNDS rounds of the mix, crashed ``mid_manifest``
+    two commits ahead and recovered on the card: its forensics sidecar
+    replays to the recovered contents, which are one of its prefix states;
+    (d) the tree path's traced rounds written as a Chrome trace: schema
+    valid, ``report_summary``'s phase totals equal to the tree path's traced
+    breakdown, and OBS_FOREST_ROUNDS traced rounds of the static forest:
+    valid, per-shard instants on every shard's track, ``router_pack`` spans,
+    ``report.main --json`` 0; (e) the op audit of the search and scan phases
+    on the tree path's tree over one mixed round.  The launch counts are
+    zeroed before the phase and read after it: each tree kernel must have
+    run.  Every check raises."""
+    import contextlib
+    import io
+    import math
+    import os
+    import tempfile
+
+    from repro_torch.configs.abtree import PAPER
+    from repro_torch.obs import report
+    from repro_torch.obs.op_audit import (AUDIT_REPEAT, audit_search_phases, count_ops,
+                                          kernel_launches, wrapper_launches)
+    from repro_torch.obs.recorder import Recorder
+    from repro_torch.obs.trace_export import load_trace, validate_trace, write_chrome_trace
+    from repro_torch.obs.tracer import NULL_TRACER, Tracer
+    from repro_torch.obs.witness import WitnessError, check_history
+
+    lib.reset_counts()
+    t_phase = time.perf_counter()
+    seconds, out = {}, {}
+    records = history["recorder"].records()
+    build = ROOT / "build"
+    build.mkdir(parents=True, exist_ok=True)
+    base = Path(tempfile.mkdtemp(prefix="obs-", dir=build))
+    try:
+        # (a) the tree path's history through the witness, in process and by its CLI
+        t0 = time.perf_counter()
+        rep = check_history(records)
+        seconds["witness"] = time.perf_counter() - t0
+        got = {"rounds": rep.rounds, "lanes": rep.lanes, "eliminated": rep.eliminated}
+        want = {k: history[k] for k in got}
+        if got != want:
+            raise AssertionError(f"witness of the tree path's history: {got}, issued {want}")
+        if rep.state != history["state"]:
+            raise AssertionError("the witness's final state differs from the oracle's")
+        t0 = time.perf_counter()
+        path = history["recorder"].export(str(base / "tree_audit.jsonl"))
+        seconds["export"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        env = {**os.environ, "PYTHONPATH": os.pathsep.join(
+            [str(ROOT / "src")] + [p for p in [os.environ.get("PYTHONPATH")] if p])}
+        cli = subprocess.run([sys.executable, "-m", "repro_torch.obs.witness", path], env=env,
+                             capture_output=True, text=True, timeout=300)
+        seconds["witness_cli"] = time.perf_counter() - t0
+        if cli.returncode != 0:
+            raise AssertionError(f"python -m repro_torch.obs.witness exited {cli.returncode}: "
+                                 f"{cli.stderr[-2000:]}")
+        out["tree_history"] = {
+            **got, "live_keys": len(rep.state), "records": len(records),
+            "ring_capacity": history["recorder"].capacity, "b": PAPER.b,
+            "lanes_per_s": rep.lanes / seconds["witness"],
+            "jsonl_bytes": Path(path).stat().st_size,
+            "bytes_per_lane": Path(path).stat().st_size / rep.lanes,
+            "cli": {"rc": cli.returncode, "stdout": cli.stdout.strip()[-300:]}}
+        log(f"obs witness: {out['tree_history']}, {seconds}")
+
+        # (b) two corrupted copies
+        t0 = time.perf_counter()
+        corrupt = {}
+        for name, make in (("swapped_pair", swap_eliminated_pair),
+                           ("dropped_delete", drop_delete_lane)):
+            bad, where = make(records, core)
+            try:
+                check_history(bad)
+            except WitnessError as e:
+                corrupt[name] = {**where, "rejected": True, "error": str(e)[:200]}
+            else:
+                raise AssertionError(f"the witness accepted the history with a {name}: {where}")
+        del bad
+        seconds["corruptions"] = time.perf_counter() - t0
+        out["corruptions"] = corrupt
+
+        # (c) crash forensics: a durable tree from empty, recorder on
+        t0 = time.perf_counter()
+        rng = np.random.default_rng(SEED + 7)
+        t = core.DurableABTree(str(base / "durable"), PAPER, mode="elim")
+        t.recorder = Recorder()
+        oracle = core.DictOracle()
+        ok = 0
+        for r, width in enumerate([OBS_CRASH_FIRST] + [BATCH] * OBS_CRASH_ROUNDS):
+            ops, keys, vals = mixed_round(rng, width, KEY_RANGE, zipf_keys, core)
+            res = t.apply_round(ops, keys, vals, scan_cap=128)
+            check_round(res, oracle.apply_mixed_round(ops, keys, vals, cap=128), ops,
+                        core.OP_RANGE, f"obs durable round {r}")
+            ok += 1
+        seconds["durable_rounds"] = time.perf_counter() - t0
+        at = t._commit_idx + 2
+        t.crash = core.CrashPoint("mid_manifest", at_commit=at)
+        crashed = None
+        for r in range(4):
+            ops, keys, vals = mixed_round(rng, BATCH, KEY_RANGE, zipf_keys, core)
+            try:
+                res = t.apply_round(ops, keys, vals, scan_cap=128)
+            except core.SimulatedCrash:
+                if r != 2 or t._commit_idx != at:
+                    raise AssertionError(f"crash at round {r}, commit {t._commit_idx}; set for {at}")
+                crashed = r
+                break
+            check_round(res, oracle.apply_mixed_round(ops, keys, vals, cap=128), ops,
+                        core.OP_RANGE, f"obs durable pre-crash round {r}")
+            ok += 1
+        if crashed is None:
+            raise AssertionError(f"the mid_manifest crash at commit {at} did not fire")
+        t.close()
+        del t
+        t1 = time.perf_counter()
+        rt = core.recover(str(base / "durable"))
+        torch.cuda.synchronize()
+        seconds["recover"] = time.perf_counter() - t1
+        t1 = time.perf_counter()
+        recs = rt.forensics_records()
+        srep = check_history(recs, collect_prefixes=True)
+        seconds["sidecar_witness"] = time.perf_counter() - t1
+        items = rt.tree.items()
+        if items != oracle.items():
+            raise AssertionError("the recovered durable tree is not the committed prefix")
+        if not recs or recs[0].get("kind") != "sidecar" or srep.rounds != ok:
+            raise AssertionError(f"forensics sidecar: {recs[:1]}, {srep.rounds} rounds witnessed, "
+                                 f"{ok} committed")
+        if srep.state != items:
+            raise AssertionError("the sidecar's replay differs from the recovered contents")
+        if items not in srep.prefix_states:
+            raise AssertionError("the recovered contents are none of the sidecar's prefix states")
+        rt.close()
+        seconds["forensics"] = time.perf_counter() - t0
+        out["forensics"] = {"rounds": srep.rounds, "lanes": srep.lanes,
+                            "eliminated": srep.eliminated, "live_keys": len(items),
+                            "crash": {"step": "mid_manifest", "at_commit": at, "round": crashed},
+                            "sidecar": {k: recs[0].get(k) for k in ("commit_idx", "rounds",
+                                                                     "backend")},
+                            "prefix_index": srep.prefix_states.index(items),
+                            "report": report.forensics_summary(recs)}
+        del rt, recs, srep
+
+        # (d) the tree path's traced rounds and two traced rounds of the static forest
+        t0 = time.perf_counter()
+        tpath = write_chrome_trace(str(base / "tree_trace.json"), history["tracer"])
+        doc = load_trace(tpath)
+        errs = validate_trace(doc)
+        if errs:
+            raise AssertionError(f"tree trace: {errs[:5]}")
+        summ = report.report_summary(doc)
+        totals = {n: p["total_ms"] for n, p in summ["phases"].items()}
+        traced = {n: ms * TRACED_ROUNDS for n, ms in history["traced_ms_per_round"].items()}
+        if totals.keys() != traced.keys() or not all(
+                math.isclose(totals[n], traced[n], rel_tol=1e-9, abs_tol=1e-9) for n in totals):
+            raise AssertionError(f"report totals {totals} != the traced breakdown {traced}")
+        missing = {"round", "search_combine", "apply", "retry", "rebalance", "scan"} - totals.keys()
+        if missing:
+            raise AssertionError(f"tree trace lacks the phases {sorted(missing)}")
+        forest.tracer = Tracer()
+        rows = timed_rounds(torch, lib, forest, forest_oracle, core, zipf_keys,
+                            np.random.default_rng(SEED + 8), OBS_FOREST_ROUNDS, "obs forest")
+        fpath = forest.tracer.export(str(base / "forest_trace.json"))
+        forest.tracer = NULL_TRACER
+        fdoc = load_trace(fpath)
+        errs = validate_trace(fdoc)
+        if errs:
+            raise AssertionError(f"forest trace: {errs[:5]}")
+        tids = {e["tid"] for e in fdoc["traceEvents"] if e["ph"] == "i"}
+        packs = sum(1 for e in fdoc["traceEvents"] if e["ph"] == "X" and e["name"] == "router_pack")
+        if not set(range(1, FOREST_SHARDS + 1)) <= tids or not packs:
+            raise AssertionError(f"forest trace: instants on tids {sorted(tids)}, "
+                                 f"{packs} router_pack spans")
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rc = report.main([fpath, "--json"])
+        fsumm = json.loads(buf.getvalue())
+        if rc != 0 or fsumm["router_pack"] is None:
+            raise AssertionError(f"report --json on the forest trace: rc {rc}, {fsumm}")
+        seconds["traces"] = time.perf_counter() - t0
+        out["traces"] = {
+            "tree": {"events": summ["events"], "traced_rounds": TRACED_ROUNDS,
+                     "total_ms": totals, "bytes": Path(tpath).stat().st_size},
+            "forest": {"events": fsumm["events"], "rounds": len(rows),
+                       "round_ms": [x["ms"] for x in rows], "shard_tids": sorted(tids),
+                       "router_pack": fsumm["router_pack"],
+                       "per_shard_lanes": fsumm["per_shard_lanes"],
+                       "bytes": Path(fpath).stat().st_size}}
+    finally:
+        shutil.rmtree(base, ignore_errors=True)
+
+    # (e) the op audit on the tree path's tree, over one mixed round
+    t0 = time.perf_counter()
+    batch = mixed_round(np.random.default_rng(SEED + 9), BATCH, KEY_RANGE, zipf_keys, core)
+    # at the frontier width the tree path's rounds scanned with (the large-cap
+    # scan grew it since)
+    tree._scan_frontier = history["scan_frontier"]
+    # on the card the audit raises on a sort in the scan phases and on a
+    # phase that did not launch its kernels
+    audit = audit_search_phases(holder=tree, batch=batch)
+    seconds["op_audit"] = time.perf_counter() - t0
+    out["op_audit"] = {p: {"ops": count_ops(c), "launched": wrapper_launches(c, p),
+                           "seen": kernel_launches(c, p)} for p, c in audit.items()}
+    out["op_audit"].update(scan_frontier=tree._scan_frontier, calls_per_phase=AUDIT_REPEAT)
+    out["seconds"] = {**seconds, "phase": time.perf_counter() - t_phase}
+    out["launches"] = launch_counts(lib)
+    if not all(out["launches"].values()):
+        raise AssertionError(f"obs phase: a tree kernel never ran: {out['launches']}")
+    log(f"obs phase: {out['seconds']}")
     return out
 
 
@@ -3010,17 +3336,24 @@ def main() -> int:
 
     # 2. the main path at full width, then occ mode on its tree, the forest
     # and the sharded indexes
-    summary, recorded, tree, oracle = run_main_path(torch, core, lib, zipf_keys)
+    summary, recorded, tree, oracle, history = run_main_path(torch, core, lib, zipf_keys)
     print(json.dumps({"main_path": summary, "card": smi}), flush=True)
     occ_summary = run_occ_path(torch, core, lib, zipf_keys, tree, oracle)
     print(json.dumps({"occ_path": occ_summary, "card": smi}), flush=True)
-    del tree, oracle
-    forest_summary, forest_recorded = run_forest_path(torch, core, lib, zipf_keys)
+    del oracle
+    forest_summary, forest_recorded, forest, forest_oracle = run_forest_path(
+        torch, core, lib, zipf_keys)
     print(json.dumps({"forest_path": forest_summary, "card": smi}), flush=True)
     index_summary, _, _ = run_index_path(torch, core, lib)
     print(json.dumps({"sharded_indexes": index_summary, "card": smi}), flush=True)
     durable_summary = run_durable_path(torch, core, lib, zipf_keys, summary)
     print(json.dumps({"durable_path": durable_summary, "card": smi}), flush=True)
+    # the obs phase: the witness over the tree path's history, trace export
+    # and report, crash forensics, the op audit
+    obs_summary = run_obs_path(torch, core, lib, zipf_keys, tree, history, forest, forest_oracle)
+    print(json.dumps({"obs_path": obs_summary, "card": smi}), flush=True)
+    del tree, history, forest, forest_oracle
+    gc.collect()
 
     # 3. the serving path at full width
     torch.backends.cuda.matmul.allow_tf32 = False  # f32 products in full f32
@@ -3053,7 +3386,8 @@ def main() -> int:
                 fa_kernel, fa_ops, fa_ref, lp_kernel, lp_ops, lp_ref),
         libs, summary, recorded, serve_summary, serve_recorded, per_call, train_summary,
         train_recorded, {"occ": occ_summary, "forest": forest_summary, "index": index_summary,
-                         "durable": durable_summary, "lm": lm_summary, "family": family_summary},
+                         "durable": durable_summary, "obs": obs_summary, "lm": lm_summary,
+                         "family": family_summary},
         forest_recorded, lm_summary, lm_recorded, family_summary, family_recorded,
     )
     print(json.dumps({"kernels": rows}), flush=True)

@@ -7,7 +7,7 @@ recorder answers *what the engine decided*: which lanes carried which ops,
 which insert/delete pairs the publishing-elimination combiner annihilated
 and how a scan validation retried.  One record per executed round, in
 arrival order, is enough to replay the engine's chosen linearization
-through the ``DictOracle`` (``python -m repro.obs.witness`` does that).
+through the ``DictOracle`` (``python -m repro_torch.obs.witness`` does that).
 
 Overhead contract:
 

@@ -14,16 +14,18 @@ not just the launch.
     a measurement tool, not a production default.
 
 Events use the Chrome trace-event model (complete events ``ph="X"``,
-instants ``ph="i"``); ``export`` writes them in the
-``{"traceEvents": [...]}`` envelope that Perfetto loads.
+instants ``ph="i"``); ``export`` writes them through
+``obs/trace_export.py`` in the ``{"traceEvents": [...]}`` envelope, with the
+process and thread names Perfetto shows.
 """
 from __future__ import annotations
 
-import json
 import time
 from typing import Dict, List, Optional
 
 import torch
+
+from repro_torch.obs.trace_export import write_chrome_trace
 
 __all__ = ["Tracer", "NULL_TRACER"]
 
@@ -143,9 +145,7 @@ class Tracer:
 
     def export(self, path: str) -> str:
         """Write the Chrome trace-event JSON file (Perfetto-loadable)."""
-        with open(path, "w") as f:
-            json.dump({"traceEvents": list(self.events), "displayTimeUnit": "ms"}, f)
-        return path
+        return write_chrome_trace(path, self)
 
 
 # The disabled singleton holders fall back to when no tracer is installed.

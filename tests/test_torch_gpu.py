@@ -1053,3 +1053,70 @@ def test_durable_segment_capture_copies_only_dirty_rows(cuda, tmp_path, monkeypa
     t.apply_round(*rounds[2])
     assert [s[0] for s in copied] == [cfg.capacity + 1] * 5
     t.close()
+
+
+# ---------------------------------------------------------------------------
+# obs: the op audit on the card, a recorded card history through the witness
+# ---------------------------------------------------------------------------
+
+
+def _audit_batch(rng, n, key_range):
+    ops = rng.choice([OP_INSERT, OP_DELETE, OP_FIND, OP_RANGE], n,
+                     p=[0.45, 0.45, 0.05, 0.05]).astype(np.int32)
+    keys = rng.integers(0, key_range, n).astype(np.int64)
+    vals = np.where(ops == OP_RANGE, rng.integers(1, 65, n), rng.integers(0, 1 << 40, n))
+    return ops, keys, vals.astype(np.int64)
+
+
+@pytest.mark.parametrize("tree", ["jax_audit_tree", "b11_mixed_batch"])
+def test_op_audit_on_card(cuda, tree):
+    """The scan descent and the scan phase run no sort on the card, and each
+    phase launches its hand-written kernels: K1 and K3 once each a search,
+    K2 in the descent, K2 and K4 in the scan phase, each seen by the
+    profiler (the audit itself raises otherwise; the counts are checked
+    here again)."""
+    from repro_torch.obs import op_audit
+
+    if tree == "jax_audit_tree":
+        out = op_audit.audit_search_phases()
+    else:
+        t, _ = _grown(cuda)
+        out = op_audit.audit_search_phases(t, _audit_batch(np.random.default_rng(3), 4096, 10**6))
+    for p in ("scan_descent", "scan_phase"):
+        ops = op_audit.count_ops(out[p])
+        assert ops["aten::sort"] == ops["aten::argsort"] == 0, (p, ops)
+    repeat = op_audit.AUDIT_REPEAT
+    assert op_audit.count_ops(out["search"])["aten::argsort"] == repeat  # the batch's key sort
+    assert op_audit.wrapper_launches(out["search"], "search") == {"K1": repeat, "K3": repeat}
+    for p, c in out.items():
+        launched, seen = op_audit.wrapper_launches(c, p), op_audit.kernel_launches(c, p)
+        assert all(0 < seen[k] <= launched[k] for k in launched), (p, launched, seen)
+
+
+@pytest.mark.parametrize("mode", ["elim", "occ"])
+@pytest.mark.parametrize("shards", [1, 4])
+def test_recorded_card_history_passes_witness_and_equals_cpu(cuda, mode, shards):
+    """The same mixed rounds (a fused scan + delete and a scan round at the
+    end) on the card and on the CPU: the flight recorders' histories equal
+    record for record and lane for lane, and the witness accepts them."""
+    from repro_torch.core import ABForest
+    from repro_torch.obs.recorder import Recorder
+    from repro_torch.obs.witness import check_history
+
+    cfg = TreeConfig(capacity=512, b=11, a=2, max_height=16)
+    records = []
+    for dev in (cuda, torch.device("cpu")):
+        h = (ABTree(cfg, mode=mode, device=dev) if shards == 1 else
+             ABForest(shards, cfg, mode=mode, key_space=(0, 4000), device=dev))
+        h.recorder = Recorder(capacity=10_000)
+        rng = np.random.default_rng(11)
+        for _ in range(5):
+            h.apply_round(*_audit_batch(rng, 512, 4000), scan_cap=32)
+        h.scan_delete_round([0], [40], cap=16)
+        h.scan_round([0], [4000], cap=64)
+        records.append(h.recorder.records())
+    assert records[0] == records[1]
+    rep = check_history(records[0], collect_prefixes=True)
+    assert rep.rounds == 7 and rep.lanes > 2500 and rep.state
+    if mode == "elim":
+        assert rep.eliminated > 0
