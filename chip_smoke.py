@@ -76,9 +76,9 @@ csrc`` (one ``nvcc`` per source, in parallel, into ``build/``), then:
    profiler);
 3. drives the serving path: ``ServeEngine`` on qwen2-0.5b at its full
    width and depth (24 layers, bf16 compute over fp32 weights made from the
-   seed), max_batch 8, s_max 1024, 32 KV pages; 4 requests of 264-token
+   seed), max_batch 8, s_max 1024, 32 KV pages; 3 requests of 264-token
    prompts (one full prefix block), each the hot prompt at 70% (two of
-   the four), 32 new tokens each; run serial, then pipelined, with the
+   the three), 32 new tokens each; run serial, then pipelined, with the
    launch counts zeroed before the serial run and read after the
    pipelined one.  Both runs must
    give every request 32 tokens and the same tokens; both indexes must pass
@@ -99,8 +99,8 @@ csrc`` (one ``nvcc`` per source, in parallel, into ``build/``), then:
    counts zeroed before and read after, and the card's peak memory printed
    for each part: (a) ``ServeEngine`` on granite-moe-3b-a800m at its
    published width and depth (32 layers, 40 experts top-8, bf16 compute
-   over fp32 weights from the seed), max_batch 8, s_max 512, 32 pages; 4
-   requests of 264-token prompts, 3 of them one hot prompt (its first
+   over fp32 weights from the seed), max_batch 8, s_max 512, 32 pages; 3
+   requests of 264-token prompts, 2 of them one hot prompt (its first
    256-token block is hit), 8 new tokens each, serial; every request gets
    its tokens, the indexes pass ``check_invariants`` and equal their
    ``DictOracle``, B7 runs once a layer a model step, one decode step run
@@ -128,7 +128,7 @@ csrc`` (one ``nvcc`` per source, in parallel, into ``build/``), then:
    before and read after: xlstm-350m, zamba2-1.2b and whisper-tiny at their
    published widths and depths (fp32 weights from the seed, bf16 compute)
    each served by ``ServeEngine(max_batch=8, s_max=512)`` (whisper: s_max
-   448, its decoder context), 4 requests of 64-token prompts, 8 new tokens
+   448, its decoder context), 2 requests of 64-token prompts, 8 new tokens
    each, serially (zamba2 also pipelined, its tokens equal to the serial
    run's), checked as step 5 checks granite's run (indexes against their
    oracle, B7 a fixed count a model step, a decode step repeated from
@@ -142,7 +142,26 @@ csrc`` (one ``nvcc`` per source, in parallel, into ``build/``), then:
    card and on the CPU with the same params, ``forward_train`` and three
    decode steps with their caches within 1e-4, each decode step repeated on
    the card bit-equal;
-7. replays one main-path call of each kernel: kernel and plain PyTorch
+7. drives the parallel layer (``run_parallel_path``), the launch counts
+   zeroed before and read after: on ``make_host_mesh()``'s 1-rank
+   ``(data, model)`` NCCL mesh, qwen2-0.5b at full width trained 2 steps
+   (8 x 1,024 tokens) by the Trainer ``launch/train.py --mesh host`` builds
+   (DTensor params and AdamW state) against the mesh-free Trainer's 2 steps
+   from the same weights and batches, losses bit-equal and B6 24 a step on
+   each; the mesh-free run's checkpoint restored onto the mesh (``--mesh
+   host`` resuming it) and a third step on each, losses equal; 4 decode
+   steps of ``make_serve_step`` (the cache placed by ``cache_shardings``)
+   against ``forward_decode``, logits and cache bit-equal, B7 24 a step on
+   each; ``compressed_grad_reduce`` of qwen2's gradients over a (pod=1,
+   data=1, model=1) mesh equal to ``dequantize_int8(_ef_quantize(...))`` on
+   the card and on the CPU, bit for bit; a one-stage ``pipeline_apply``
+   equal to its stage; granite's MoE layer (``moe_groups=32``, 2 x 1,024
+   tokens) under the mesh equal to the mesh-free path; the process group
+   destroyed; then the dry-run CLI in a subprocess on deepseek-v3-671b
+   ``decode_32k`` over the fake 512-rank multi-pod mesh with ``--suite opt``
+   (qwen2-0.5b's cell instead past 60 s), its per-device bytes and FLOPs
+   printed;
+8. replays one main-path call of each kernel: kernel and plain PyTorch
    version on the same CUDA tensors must agree (the tree kernels and the
    leaf probe bit for bit; the two attention kernels within 2 ulps of
    their dtype at the output's largest magnitude, on the path's tensors and
@@ -169,7 +188,7 @@ csrc`` (one ``nvcc`` per source, in parallel, into ``build/``), then:
    whisper's encoder over 1,500 frames without causality, its
    cross-attention decode over them), rows of their own in the ``kernels``
    line;
-8. prints ``{"ok": true, "device": {...}}`` as its last line.
+9. prints ``{"ok": true, "device": {...}}`` as its last line.
 
 Any failed check raises, so the script exits non-zero.  Without a CUDA card,
 or without the repository's ``src/repro_torch`` beside it, it exits 2 and
@@ -218,8 +237,9 @@ OCC_WARMUP, OCC_ROUNDS, UNIFORM_ROUNDS = 1, 3, 3
 # and each retirement re-inserts the moved keys densely into an emptied
 # range at about one retry pass per 6 keys, so its time grows with the
 # prefill (at 500,000 keys the warm-up ran past 690 s on an H100 80GB HBM3,
-# at 50,000 its three retirements took 141 s; PERF.md section 4)
-FOREST_SHARDS, FOREST_PREFILL = 4, 20_000
+# at 50,000 its three retirements took 141 s, at 20,000 up to 120 s on a
+# slow host; PERF.md section 4)
+FOREST_SHARDS, FOREST_PREFILL = 4, 10_000
 FOREST_WARMUP, FOREST_ROUNDS = 3, 10
 FOREST_STREAM_CAP, FOREST_STREAM_HALF = 128, 20_000  # scan_stream around splits[0]
 # sharded indexes without a model: steps of (publish, lookup, evict) calls
@@ -246,9 +266,10 @@ SERVE_KERNELS = TREE_KERNELS + ("decode_attention",)
 # serve phase: qwen2-0.5b at full width and depth
 SERVE_ARCH = "qwen2-0.5b"
 SERVE_ENGINE = dict(max_batch=8, s_max=1024, n_pages=32)
-# prompts of one full prefix block and 8 tokens (cut from 512 tokens to
-# keep the script's time in bounds: the engine prefills token by token)
-SERVE_REQUESTS, SERVE_PROMPT, SERVE_MAX_NEW, SERVE_HOT_FRAC = 4, 264, 32, 0.7  # 2 of them hot
+# prompts of one full prefix block and 8 tokens (cut from 512 tokens, and
+# from 4 requests to 3, to keep the script's time in bounds: the engine
+# prefills token by token)
+SERVE_REQUESTS, SERVE_PROMPT, SERVE_MAX_NEW, SERVE_HOT_FRAC = 3, 264, 32, 0.7  # 2 of them hot
 TRACED_REQUESTS, TRACED_MAX_NEW = 2, 8
 STEP_TIMING_STEPS = 20
 # train phase: the Trainer on qwen2-0.5b at full width and depth, as
@@ -269,11 +290,12 @@ DECODE_ULPS = 2
 # f32 outside them
 OPS_PER_S = {"torch.bfloat16": 989e12, "torch.float32": 67e12}
 # LM-family and training-stack phase: granite-moe-3b-a800m at its published
-# width and depth, served (LM_HOT: 3 of 4 requests one hot prompt, whose
-# first 256-token block is hit) and trained by the launcher's Trainer
+# width and depth, served (LM_HOT: 2 of 3 requests one hot prompt, whose
+# first 256-token block is hit; cut from 4 requests for the script's time)
+# and trained by the launcher's Trainer
 LM_ARCH = "granite-moe-3b-a800m"
 LM_SERVE_ENGINE = dict(max_batch=8, s_max=512, n_pages=32)
-LM_PROMPT, LM_MAX_NEW, LM_HOT = 264, 8, (True, True, False, True)
+LM_PROMPT, LM_MAX_NEW, LM_HOT = 264, 8, (True, True, False)
 LM_TRAIN_BATCH, LM_TRAIN_SEQ = 2, 1024
 LM_WARMUP_STEPS, LM_TIMED_STEPS = 2, 5
 LM_FALL_STEPS, LM_FALL_LR = 6, 1e-3  # constant_lr on one fixed batch
@@ -299,7 +321,7 @@ QUANT_N, EF_N, EF_STEPS = 1 << 26, 1 << 20, 50
 FAMILY_ARCHS = ("xlstm-350m", "zamba2-1.2b", "whisper-tiny")
 FAMILY_ENGINE = dict(max_batch=8, s_max=512, n_pages=32)
 FAMILY_S_MAX = {"whisper-tiny": 448}  # whisper's decoder context
-FAMILY_REQUESTS, FAMILY_PROMPT, FAMILY_MAX_NEW = 4, 64, 8
+FAMILY_REQUESTS, FAMILY_PROMPT, FAMILY_MAX_NEW = 2, 64, 8  # cut from 4 for the script's time
 FAMILY_PIPELINED = ("zamba2-1.2b",)
 FAMILY_TRAIN = {"zamba2-1.2b": (2, 1024), "whisper-tiny": (8, 448)}
 XLSTM_GRAD_SHAPE, XLSTM_CHUNK = (1, 256), 64
@@ -313,6 +335,14 @@ FAMILY_CHECK_OVERRIDES = {"xlstm-350m": dict(slstm_every=2),
                           "zamba2-1.2b": dict(shared_attn_every=2),
                           "whisper-tiny": dict(enc_layers=2)}
 CARD_CPU_TOL = 1e-4  # atol and rtol: f32 sums in another order (the CPU tests' logit limit)
+PARALLEL_ARCH = "qwen2-0.5b"
+PARALLEL_BATCH, PARALLEL_SEQ, PARALLEL_STEPS = 8, 1024, 2
+PARALLEL_DECODE_STEPS = 4  # serve steps at positions 0..3, each held to forward_decode's
+PARALLEL_PIPE = dict(m=4, b=8)  # one-stage pipeline: microbatches of qwen2's width
+PARALLEL_MOE_ARCH, PARALLEL_MOE_TOKENS = "granite-moe-3b-a800m", (2, 1024)
+DRYRUN_CELL = ("deepseek-v3-671b", "decode_32k", "multi", "opt")
+DRYRUN_FALLBACK = ("qwen2-0.5b", "decode_32k", "multi", "baseline")
+DRYRUN_TIMEOUT_S = 60
 
 
 def log(msg: str) -> None:
@@ -2660,6 +2690,286 @@ def run_family_path(torch, core, lib, device):
 
 
 # ----------------------------------------------------------------------------
+# the parallel layer on a 1-rank mesh
+# ----------------------------------------------------------------------------
+
+
+def start_dryrun(cell):
+    """Start one dry-run cell by the CLI in a subprocess (its own fake world
+    of 256 / 512 ranks, meta tensors, the host's CPU alone), to run beside
+    the rest of the phase; killed at exit if still running."""
+    import os
+    import tempfile
+    import weakref
+
+    arch, shape, mesh, suite = cell
+    tmp = tempfile.TemporaryDirectory()
+    out = Path(tmp.name) / "dryrun.json"
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
+    cmd = [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch, "--shape", shape,
+           "--mesh", mesh, "--suite", suite, "--out", str(out), "--force"]
+    logf = open(Path(tmp.name) / "dryrun.log", "w")
+    proc = subprocess.Popen(cmd, stdout=logf, stderr=subprocess.STDOUT, env=env, cwd=ROOT)
+    weakref.finalize(proc, proc.kill)
+    return cell, proc, tmp, out, logf, time.perf_counter()
+
+
+def finish_dryrun(run, timeout_s):
+    """The started cell's record, or None past ``timeout_s`` from its start
+    (the subprocess is then killed)."""
+    cell, proc, tmp, out, logf, t0 = run
+    try:
+        try:
+            proc.wait(timeout=max(0.0, timeout_s - (time.perf_counter() - t0)))
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait()
+            return None
+        if proc.returncode != 0:
+            log_text = (Path(tmp.name) / "dryrun.log").read_text()
+            raise AssertionError(f"dry-run {cell} failed:\n{log_text[-3000:]}")
+        arch, shape, mesh, _ = cell
+        rec = json.loads(out.read_text())[f"{arch}|{shape}|{mesh}"]
+        rec["wall_s"] = time.perf_counter() - t0
+    finally:
+        logf.close()
+        tmp.cleanup()
+    if not rec.get("ok") or rec["status"] != "run" or rec["cost"]["flops"] <= 0:
+        raise AssertionError(f"dry-run {cell}: {rec}")
+    return rec
+
+
+def run_parallel_path(torch, lib, device):
+    """The parallel phase on the 1-rank ``("data", "model")`` NCCL mesh of
+    ``make_host_mesh()``; its launch counts are zeroed before it and read
+    after it.  qwen2-0.5b at full width: PARALLEL_STEPS train steps of the
+    Trainer ``launch/train.py --mesh host`` builds against the mesh-free
+    Trainer's from the same weights and batches (losses bit-equal, B6 24 a
+    step on each); the mesh-free run's checkpoint restored onto the mesh
+    (``--mesh host`` resuming it) and a third step on each, equal; the
+    serve step (``make_serve_step``, its cache placed by
+    ``cache_shardings``) against ``forward_decode``, logits and cache
+    bit-equal, B7 24 a step on each; ``compressed_grad_reduce`` of qwen2's
+    gradients over a (pod=1, data=1, model=1) mesh equal to
+    ``dequantize_int8(_ef_quantize(...))`` on the card and on the CPU;
+    ``pipeline_apply`` with one stage equal to the stage; granite's MoE
+    layer (grouped, ``moe_groups=32``) under the mesh equal to the
+    mesh-free path.  The process group is destroyed at the end.  Beside it
+    all, in a subprocess started first, the dry-run of DRYRUN_CELL
+    (DRYRUN_FALLBACK past DRYRUN_TIMEOUT_S)."""
+    import tempfile
+
+    from torch.distributed.tensor import DTensor, Replicate, Shard, distribute_tensor
+
+    from repro_torch._shardmap_compat import place
+    from repro_torch.configs import get_config
+    from repro_torch.configs.optimized import overrides_for
+    from repro_torch.data import make_data_iter
+    from repro_torch.launch import train as launch
+    from repro_torch.launch.mesh import make_host_mesh, make_mesh, shutdown
+    from repro_torch.models import backbone, init_params, moe
+    from repro_torch.optim.adamw import tree_leaves, tree_map
+    from repro_torch.parallel import compress
+    from repro_torch.parallel.ctx import use_mesh
+    from repro_torch.parallel.pipeline import pipeline_apply
+    from repro_torch.parallel.sharding import cache_shardings
+    from repro_torch.train import make_serve_step
+
+    t0 = time.perf_counter()
+    dry = start_dryrun(DRYRUN_CELL)
+    lib.reset_counts()
+    flash, decode = lib.counter("flash_attention"), lib.counter("decode_attention")
+    on_card = device.type == "cuda"
+    sync = (lambda: torch.cuda.synchronize(device)) if on_card else (lambda: None)
+    cfg = get_config(PARALLEL_ARCH)
+    to_dev = lambda batch: {k: torch.from_numpy(x).to(device) for k, x in batch.items()}
+    it = make_data_iter(cfg, PARALLEL_BATCH, PARALLEL_SEQ)
+    batches = [to_dev(next(it)) for _ in range(PARALLEL_STEPS + 1)]
+    out = {"config": {"arch": PARALLEL_ARCH, "layers": cfg.n_layers, "d_model": cfg.d_model,
+                      "batch": PARALLEL_BATCH, "seq": PARALLEL_SEQ, "steps": PARALLEL_STEPS,
+                      "mesh": "make_host_mesh(): 1 rank, (data=1, model=1), nccl"}}
+    reset_peak(torch, device)
+    mesh = make_host_mesh()
+    try:
+        def step(trainer, i):
+            b6 = flash.launches
+            sync()
+            t1 = time.perf_counter()
+            res = trainer.step_fn(trainer.params, trainer.opt, batches[i], i)
+            loss = float(res.metrics["loss"])  # waits for the step
+            walls.append(time.perf_counter() - t1)
+            trainer.params, trainer.opt = res.params, res.opt_state
+            trainer.step = i + 1
+            return loss, flash.launches - b6
+
+        walls = []
+
+        with tempfile.TemporaryDirectory() as plain_dir, tempfile.TemporaryDirectory() as mesh_dir:
+            argv = ["--arch", PARALLEL_ARCH, "--batch", str(PARALLEL_BATCH), "--seq",
+                    str(PARALLEL_SEQ), "--steps", str(PARALLEL_STEPS + 1), "--ckpt"]
+            plain = launch.build_trainer(launch.parse_args(argv + [plain_dir]), device)
+            meshed = launch.build_trainer(launch.parse_args(argv + [mesh_dir, "--mesh", "host"]),
+                                          device)
+            if not all(isinstance(p, DTensor) for p in tree_leaves(meshed.params)):
+                raise AssertionError("parallel: --mesh host left a param off the mesh")
+            rows = []
+            for i in range(PARALLEL_STEPS):
+                lp, bp = step(plain, i)
+                lm, bm = step(meshed, i)
+                rows.append({"step": i, "loss_plain": lp, "loss_mesh": lm,
+                             "b6_plain": bp, "b6_mesh": bm, "s_plain": walls[-2],
+                             "s_mesh": walls[-1]})
+                if lm != lp or bm != bp or bp != cfg.n_layers:
+                    raise AssertionError(f"parallel train step {i}: {rows[-1]}")
+            del meshed
+            t1 = time.perf_counter()
+            plain._save()
+            save_s = time.perf_counter() - t1
+            t1 = time.perf_counter()
+            restored = launch.build_trainer(launch.parse_args(argv + [plain_dir, "--mesh", "host"]),
+                                            device)
+            sync()
+            restore_s = time.perf_counter() - t1
+            if restored.resumed_from != PARALLEL_STEPS:
+                raise AssertionError(f"parallel: resumed from {restored.resumed_from}")
+            lp, bp = step(plain, PARALLEL_STEPS)
+            lm, bm = step(restored, PARALLEL_STEPS)
+            rows.append({"step": PARALLEL_STEPS, "loss_plain": lp, "loss_restored_on_mesh": lm,
+                         "b6_plain": bp, "b6_mesh": bm, "s_plain": walls[-2],
+                         "s_mesh": walls[-1]})
+            if lm != lp or bm != bp:
+                raise AssertionError(f"parallel: the restored step differs: {rows[-1]}")
+            del restored
+        out["train"] = {"steps": rows, "checkpoint_save_s": save_s,
+                        "restore_onto_mesh_s": restore_s}
+        log(f"parallel train: losses equal over {len(rows)} steps, save {save_s:.1f}s, "
+            f"restore onto the mesh {restore_s:.1f}s")
+
+        # the serve step, its cache placed by cache_shardings, against forward_decode
+        params = plain.params
+        with torch.no_grad():
+            want_cache = backbone.init_cache(cfg, PARALLEL_BATCH, PARALLEL_SEQ, device)
+            cache = place(backbone.init_cache(cfg, PARALLEL_BATCH, PARALLEL_SEQ, device),
+                          cache_shardings(cfg, PARALLEL_BATCH, PARALLEL_SEQ, mesh))
+            serve = make_serve_step(cfg, mesh, PARALLEL_BATCH, PARALLEL_SEQ)
+            drows = []
+            for pos in range(PARALLEL_DECODE_STEPS):
+                tok = batches[0]["tokens"][:, pos]
+                b7 = decode.launches
+                sync()
+                t1 = time.perf_counter()
+                want, _ = backbone.forward_decode(params, want_cache, tok, pos, cfg)
+                sync()
+                t2 = time.perf_counter()
+                b7_plain = decode.launches - b7
+                b7 = decode.launches
+                got, _ = serve(params, cache, tok, pos)
+                got = got.full_tensor()
+                sync()
+                t3 = time.perf_counter()
+                b7_mesh = decode.launches - b7
+                equal = bool(torch.equal(got, want))
+                drows.append({"pos": pos, "logits_equal": equal, "b7_plain": b7_plain,
+                              "b7_mesh": b7_mesh, "ms_plain": (t2 - t1) * 1e3,
+                              "ms_mesh": (t3 - t2) * 1e3})
+                if not equal or b7_mesh != b7_plain or b7_plain != cfg.n_layers:
+                    raise AssertionError(f"parallel serve step: {drows[-1]}")
+            cache_equal = bool(torch.equal(cache["layers"].k.full_tensor(), want_cache["layers"].k))
+            if not cache_equal:
+                raise AssertionError("parallel serve: the placed cache differs from forward_decode's")
+        out["serve"] = {"steps": drows, "cache_equal": cache_equal}
+        del want_cache, cache
+
+        # compressed_grad_reduce of qwen2's gradients over (pod=1, data=1, model=1)
+        live = tree_map(lambda p: p.detach().requires_grad_(), params)
+        loss, _ = backbone.loss_fn(live, batches[0], cfg)
+        grads = {str(i): g for i, g in enumerate(torch.autograd.grad(loss, tree_leaves(live)))}
+        del live, loss, plain
+        mesh3 = make_mesh((1, 1, 1), ("pod", "data", "model"), device.type)
+        err = compress.init_error_feedback(grads)
+        t1 = time.perf_counter()
+        mean, err2 = compress.compressed_grad_reduce(grads, err, mesh3)
+        sync()
+        reduce_ms = (time.perf_counter() - t1) * 1e3
+        n_values, card_ok, cpu_ok = 0, True, True
+        for k, g in grads.items():
+            q, sc, e_new = compress._ef_quantize(g, err[k])
+            card_ok &= torch.equal(mean[k], compress.dequantize_int8(q, sc, g.shape, g.dtype))
+            card_ok &= torch.equal(err2[k], e_new)
+            gc_, ec_ = g.cpu(), err[k].cpu()
+            q, sc, _ = compress._ef_quantize(gc_, ec_)
+            cpu_ok &= torch.equal(mean[k].cpu(), compress.dequantize_int8(q, sc, gc_.shape, gc_.dtype))
+            n_values += g.numel()
+        if not (card_ok and cpu_ok):
+            raise AssertionError(f"compressed_grad_reduce: card {card_ok}, CPU {cpu_ok}")
+        out["compressed_reduce"] = {"values": n_values, "leaves": len(grads), "ms": reduce_ms,
+                                    "equal_on_card": card_ok, "equal_to_cpu": cpu_ok}
+        del grads, err, mean, err2
+
+        # a one-stage pipeline (the ring hand-off to itself) against the stage
+        pmesh = make_mesh((1,), ("pod",), device.type)
+        gen = torch.Generator(device=device).manual_seed(SEED)
+        w = torch.randn((1, cfg.d_model, cfg.d_model), generator=gen, device=device) * 0.03
+        xs = torch.randn((PARALLEL_PIPE["m"], PARALLEL_PIPE["b"], cfg.d_model), generator=gen,
+                         device=device)
+        body = lambda p, h: torch.tanh(h @ p["w"])
+        piped = pipeline_apply({"w": w}, xs, body, pmesh)
+        pipe_equal = bool(torch.equal(piped, torch.tanh(xs @ w[0])))
+        if not pipe_equal:
+            raise AssertionError("pipeline_apply with one stage differs from the stage")
+        out["pipeline"] = {"stages": 1, **PARALLEL_PIPE, "d": cfg.d_model, "equal": pipe_equal}
+
+        # granite's MoE layer, grouped, under the mesh against the mesh-free path
+        mcfg = get_config(PARALLEL_MOE_ARCH).replace(
+            **overrides_for(PARALLEL_MOE_ARCH, "train_4k"))
+        mp = init_params(moe.moe_spec(mcfg), device, seed=SEED)
+        xm = (torch.randn(PARALLEL_MOE_TOKENS + (mcfg.d_model,), generator=gen, device=device)
+              .to(getattr(torch, mcfg.dtype)))
+        with torch.no_grad():
+            want = moe.moe_apply(mp, xm, mcfg)
+            with use_mesh(mesh):
+                got = moe.moe_apply(mp, distribute_tensor(xm, mesh, [Shard(0), Replicate()]), mcfg)
+            moe_equal = bool(torch.equal(got.full_tensor(), want))
+        if not moe_equal:
+            raise AssertionError("parallel: the grouped MoE under the mesh differs")
+        out["moe"] = {"arch": PARALLEL_MOE_ARCH, "moe_groups": mcfg.moe_groups,
+                      "experts": mcfg.n_experts, "top_k": mcfg.top_k, "d_model": mcfg.d_model,
+                      "tokens": list(PARALLEL_MOE_TOKENS), "equal": moe_equal}
+        del mp, xm, want, got
+        out["max_memory_allocated"] = peak_bytes(torch, device)
+    finally:
+        shutdown()
+    out["launches"] = launch_snapshot(lib)
+    for name in ("flash_attention", "decode_attention"):
+        if out["launches"][name] <= 0:
+            raise AssertionError(f"parallel phase: {name} never launched")
+    if on_card:
+        torch.cuda.empty_cache()
+
+    t1 = time.perf_counter()
+    rec = finish_dryrun(dry, DRYRUN_TIMEOUT_S)
+    cell = DRYRUN_CELL
+    if rec is None:
+        log(f"dry-run {DRYRUN_CELL} past {DRYRUN_TIMEOUT_S}s: {DRYRUN_FALLBACK} instead")
+        cell = DRYRUN_FALLBACK
+        rec = finish_dryrun(start_dryrun(DRYRUN_FALLBACK), DRYRUN_TIMEOUT_S)
+        if rec is None:
+            raise AssertionError(f"dry-run {DRYRUN_FALLBACK} past {DRYRUN_TIMEOUT_S}s")
+    out["dryrun"] = {"cell": list(cell), "wall_s": rec["wall_s"], "trace_s": rec["lower_compile_s"],
+                     "n_devices": rec["n_devices"], "n_params": rec["n_params"],
+                     "memory_per_device": rec["memory"], "cost_per_device": rec["cost"],
+                     "collectives_per_device": rec["collectives"], "fits_80gb": rec["fits"],
+                     "counted_on": "meta tensors over a fake world: counts, not times"}
+    log(f"dry-run {cell}: {rec['memory']['argument_size_in_bytes'] / 1e9:.2f} GB of arguments, "
+        f"{rec['memory']['temp_size_in_bytes'] / 1e9:.2f} GB of temp (fits 80 GB: {rec['fits']}) "
+        f"and {rec['cost']['flops']:.3e} FLOPs a device, {rec['wall_s']:.1f}s from its start, "
+        f"waited {time.perf_counter() - t1:.1f}s")
+    out["seconds"] = time.perf_counter() - t0
+    log(f"parallel phase: {out['seconds']:.1f}s")
+    return out
+
+
+# ----------------------------------------------------------------------------
 # kernels against their plain versions
 # ----------------------------------------------------------------------------
 
@@ -3380,6 +3690,12 @@ def main() -> int:
     family_summary, family_recorded = run_family_path(torch, core, lib, torch.device("cuda"))
     print(json.dumps({"family_path": family_summary, "card": smi}), flush=True)
 
+    # the parallel layer: qwen2 trained, restored and served on a 1-rank NCCL
+    # mesh against the mesh-free runs, the compressed reduce, the pipeline,
+    # the grouped MoE; the dry-run of a 512-rank cell
+    parallel_summary = run_parallel_path(torch, lib, torch.device("cuda"))
+    print(json.dumps({"parallel_path": parallel_summary, "card": smi}), flush=True)
+
     # 7. every kernel against its plain version at main-path shapes
     rows = kernel_report(
         torch, (td_kernel, td_ref, ec_kernel, ec_ref, rs_kernel, rs_ref, da_kernel, da_ref,
@@ -3387,7 +3703,7 @@ def main() -> int:
         libs, summary, recorded, serve_summary, serve_recorded, per_call, train_summary,
         train_recorded, {"occ": occ_summary, "forest": forest_summary, "index": index_summary,
                          "durable": durable_summary, "obs": obs_summary, "lm": lm_summary,
-                         "family": family_summary},
+                         "family": family_summary, "parallel": parallel_summary},
         forest_recorded, lm_summary, lm_recorded, family_summary, family_recorded,
     )
     print(json.dumps({"kernels": rows}), flush=True)

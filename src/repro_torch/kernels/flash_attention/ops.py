@@ -6,13 +6,20 @@ recomputes through the plain version (``ref.attention_ref``) and returns
 its autograd gradients.  That is the JAX package's ``custom_vjp``
 (``src/repro/kernels/flash_attention/ops.py``): a kernel forward and the
 reference's VJP, with no backward kernel.  On CPU tensors it is the plain
-version with ordinary autograd.  There is no fallback between the two."""
+version with ordinary autograd.  There is no fallback between the two.
+
+``DTensor`` inputs (a model under a mesh) are never handed to either: the
+wrapper runs again on each rank's local (batch, head) shard
+(``_shardmap_compat.local_heads``), whose plain tensors then take the
+rule above."""
 from __future__ import annotations
 
 from typing import Optional
 
 import torch
+from torch.distributed.tensor import DTensor
 
+from repro_torch._shardmap_compat import local_heads
 from repro_torch.kernels import _lib
 from repro_torch.kernels.flash_attention import kernel, ref
 
@@ -48,6 +55,8 @@ def flash_attention(
     after it).  Returns (B, H, S, D) in q's dtype."""
     if sm_scale is None:
         sm_scale = 1.0 / (q.shape[-1] ** 0.5)
+    if isinstance(q, DTensor):
+        return local_heads(flash_attention, (q, k, v), causal, window, sm_scale)
     if _lib.on_cuda(q):
         return _FlashAttention.apply(q.contiguous(), k.contiguous(), v.contiguous(),
                                      bool(causal), int(window), float(sm_scale))

@@ -7,8 +7,11 @@
 Without ``--reduced`` it trains the arch at its published width and depth;
 ``--reduced`` gives the tiny same-family config.  Training auto-resumes
 from the newest durable checkpoint in ``--ckpt`` (default: a directory
-under the system's temporary directory).  ``--mesh`` is refused: the port
-has no parallel layer yet (ROADMAP.md queue A, item 9).
+under the system's temporary directory).  Without ``--mesh`` it trains on
+one device; ``--mesh host`` on the 1-rank ``(data, model)`` mesh
+(``launch.mesh.make_host_mesh``: DTensor params and batches); ``single``
+and ``multi`` ask for the production meshes, which need a world of 256 /
+512 ranks and otherwise raise, naming the dry-run.
 """
 from __future__ import annotations
 
@@ -19,6 +22,7 @@ import tempfile
 
 from repro_torch.configs import get_config
 from repro_torch.data import make_data_iter
+from repro_torch.launch.mesh import make_host_mesh, make_production_mesh
 from repro_torch.models import reduced
 from repro_torch.train import Trainer, TrainerConfig
 
@@ -34,13 +38,20 @@ def parse_args(argv=None):
     ap.add_argument("--microbatch", type=int, default=None)
     ap.add_argument("--reduced", action="store_true")
     ap.add_argument("--fail-at", type=int, default=None, help="inject a crash (testing)")
-    ap.add_argument("--mesh", default=None,
-                    help="not supported: the port runs on one device (ROADMAP.md queue A, item 9)")
-    args = ap.parse_args(argv)
-    if args.mesh is not None:
-        ap.error("--mesh is not ported yet: the port trains on one device "
-                 "(ROADMAP.md queue A, item 9: parallelism)")
-    return args
+    ap.add_argument("--mesh", default=None, choices=["host", "single", "multi"],
+                    help="host: a 1-rank mesh; single / multi: the (16,16) / (2,16,16) "
+                         "production meshes (a world of 256 / 512 ranks)")
+    return ap.parse_args(argv)
+
+
+def build_mesh(kind, device=None):
+    """The mesh ``--mesh kind`` names (None: no mesh)."""
+    if kind is None:
+        return None
+    if kind == "host":
+        return make_host_mesh(device)
+    return make_production_mesh(multi_pod=kind == "multi",
+                                device_type="cpu" if str(device) == "cpu" else "cuda")
 
 
 def build_trainer(args, device=None) -> Trainer:
@@ -56,7 +67,7 @@ def build_trainer(args, device=None) -> Trainer:
         fail_at_step=args.fail_at,
     )
     mk_iter = lambda step: make_data_iter(cfg, batch=args.batch, seq=args.seq, start_step=step)
-    return Trainer(cfg, tcfg, mk_iter, device=device)
+    return Trainer(cfg, tcfg, mk_iter, device=device, mesh=build_mesh(args.mesh, device))
 
 
 def main(argv=None, device=None):

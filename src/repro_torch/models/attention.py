@@ -27,6 +27,13 @@ over ``enc_frames`` frames), which the flash kernel does not take, and the
 JAX package calls no Pallas kernel there.  A one-token decode over the
 encoder output is the decode-attention kernel's function at ``kv_len`` =
 the frames, and goes through its wrapper.
+
+Under a mesh (``DTensor`` params and caches) every attention runs on each
+rank's local (batch, head) shard (``_shardmap_compat.local_heads``, which
+the kernel wrappers call on a ``DTensor`` too), and a decode writes its new cache
+column in place on the rank whose shard holds it
+(``_shardmap_compat.write_index``): the cache's sequence may be split over
+``model`` (``parallel/sharding.py``).
 """
 from __future__ import annotations
 
@@ -34,6 +41,7 @@ from typing import NamedTuple, Optional
 
 import torch
 
+from repro_torch._shardmap_compat import local_heads, write_index
 from repro_torch.kernels.decode_attention.ops import decode_attention
 from repro_torch.kernels.flash_attention.ops import flash_attention
 from repro_torch.kernels.flash_attention.ref import attention_ref
@@ -109,11 +117,11 @@ def gqa_decode(p, x, cfg, cache: KVCache, pos: int):
     q, k, v = _qkv(p, x, cfg, positions)  # q (B,H,1,D); k/v (B,KH,1,D)
     s = cache.k.shape[2]
     col = min(max(int(pos), 0), s - 1)
-    cache.k[:, :, col] = k[:, :, 0].to(cache.k.dtype)
-    cache.v[:, :, col] = v[:, :, 0].to(cache.v.dtype)
+    write_index(cache.k, 2, col, k[:, :, 0])
+    write_index(cache.v, 2, col, v[:, :, 0])
     kv_len = int(pos) + 1
     if cfg.window > 0:
-        o = _decode_windowed(q[:, :, 0], cache.k, cache.v, kv_len, cfg.window)
+        o = local_heads(_decode_windowed, (q[:, :, 0], cache.k, cache.v), kv_len, cfg.window)
     else:
         # columns past S do not exist: kv_len > S reads all S, as JAX's mask does
         o = decode_attention(
@@ -189,7 +197,8 @@ def mla_train(p, x, cfg):
 
     q = torch.cat([q_nope, q_rope], dim=-1)
     k = torch.cat([k_nope, k_rope[:, None].expand(q_rope.shape)], dim=-1)
-    o = attention_ref(q, k, v, causal=True, sm_scale=_mla_scale(cfg))  # (B, H, S, dh)
+    # (B, H, S, dh)
+    o = local_heads(attention_ref, (q, k, v), causal=True, sm_scale=_mla_scale(cfg))
     hd = o.shape[1] * o.shape[3]
     return o.transpose(1, 2).reshape(b, s, hd) @ p["wo"].to(dt).reshape(hd, -1)
 
@@ -211,24 +220,33 @@ def mla_decode(p, x, cfg, cache: KVCache, pos: int):
     k_rope = apply_rope(k_rope[:, None], positions, cfg.rope_theta)[:, 0]
     lat = cache.k
     s = lat.shape[1]
-    lat[:, min(max(int(pos), 0), s - 1)] = torch.cat([ckv, k_rope], dim=-1).to(lat.dtype)
+    write_index(lat, 1, min(max(int(pos), 0), s - 1), torch.cat([ckv, k_rope], dim=-1))
     kv_len = int(pos) + 1
 
-    c_lat = lat[..., : cfg.kv_lora].to(dt)  # (B, S, C)
-    r_lat = lat[..., cfg.kv_lora :].to(dt)  # (B, S, R)
     # absorb W_UK into q: q_c (B, H, C) = q_nope @ W_UK^T
     q_c = torch.einsum("bhk,chk->bhc", q_nope, p["wuk"].to(dt))
-    scores = torch.einsum("bhc,bsc->bhs", q_c.float(), c_lat.float())
-    scores = scores + torch.einsum("bhr,bsr->bhs", q_rope.float(), r_lat.float())
-    scores = scores / ((cfg.d_head + cfg.rope_head) ** 0.5)
-    live = torch.arange(s, device=x.device)[None, None, :] < kv_len
-    w = torch.softmax(scores.masked_fill(~live, -1e30), dim=-1)
-    # attend over the latents, then absorb W_UV on the way out
-    o_lat = torch.einsum("bhs,bsc->bhc", w, c_lat.float()).to(dt)
+    # the latent has no heads: gathered where the queries' heads are split
+    o_lat = local_heads(_mla_scores, (q_c, q_rope, lat), kv_len, cfg, head_dims=(1, 1, None))
+    # absorb W_UV on the way out
     o = torch.einsum("bhc,chk->bhk", o_lat, p["wuv"].to(dt))
     hd = o.shape[1] * o.shape[2]
     y = o.reshape(b, hd) @ p["wo"].to(dt).reshape(hd, -1)
     return y[:, None, :], cache
+
+
+def _mla_scores(q_c, q_rope, lat, kv_len, cfg):
+    """Attention of (B, H, C) absorbed queries over a (B, S, C + R) latent
+    cache's first ``kv_len`` columns → (B, H, C) in the compute dtype."""
+    dt = cdt(cfg)
+    s = lat.shape[1]
+    c_lat = lat[..., : cfg.kv_lora].to(dt)  # (B, S, C)
+    r_lat = lat[..., cfg.kv_lora :].to(dt)  # (B, S, R)
+    scores = torch.einsum("bhc,bsc->bhs", q_c.float(), c_lat.float())
+    scores = scores + torch.einsum("bhr,bsr->bhs", q_rope.float(), r_lat.float())
+    scores = scores / ((cfg.d_head + cfg.rope_head) ** 0.5)
+    live = torch.arange(s, device=lat.device)[None, None, :] < kv_len
+    w = torch.softmax(scores.masked_fill(~live, -1e30), dim=-1)
+    return torch.einsum("bhs,bsc->bhc", w, c_lat.float()).to(dt)
 
 
 def mla_cache_spec(cfg, batch, s_max, layers=None):
@@ -264,6 +282,6 @@ def cross_apply(p, x, enc, cfg):
     if s == 1:
         o = decode_attention(q[:, :, 0].contiguous(), k.contiguous(), v.contiguous())[:, :, None]
     else:
-        o = attention_ref(q, k, v, causal=False)
+        o = local_heads(attention_ref, (q, k, v), causal=False)
     hd = o.shape[1] * o.shape[3]
     return o.transpose(1, 2).reshape(b, s, hd) @ p["wo"].to(dt).reshape(hd, -1)

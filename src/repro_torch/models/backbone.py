@@ -52,6 +52,7 @@ from torch.utils.checkpoint import (
     create_selective_checkpoint_contexts,
 )
 
+from repro_torch._shardmap_compat import batch_local
 from repro_torch.models import attention as attn
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm as ssm_mod
@@ -70,6 +71,7 @@ from repro_torch.models.layers import (
 )
 from repro_torch.kernels._lib import resolve_device
 from repro_torch.models.params import P, TensorSpec, map_specs
+from repro_torch.parallel.ctx import current_mesh, use_mesh
 
 
 # ---------------------------------------------------------------------------
@@ -99,13 +101,25 @@ _dots_context = functools.partial(create_selective_checkpoint_contexts, _dots_po
 
 
 def _remat(body, cfg):
-    """``body(params, x)`` checkpointed as ``cfg.remat`` says."""
-    if cfg.remat == "full":
-        return lambda lp, x: checkpoint(body, lp, x, use_reentrant=False)
-    if cfg.remat == "dots":
-        return lambda lp, x: checkpoint(body, lp, x, use_reentrant=False,
-                                        context_fn=_dots_context)
-    return body
+    """``body(params, x)`` checkpointed as ``cfg.remat`` says.  The
+    recompute runs in the backward, on the card on the autograd engine's
+    own thread, which sees none of the caller's ``use_mesh``; so it
+    re-enters the mesh the forward ran under, and the same local regions
+    and constraints run again on the same placements."""
+    if cfg.remat not in ("full", "dots"):
+        return body
+    kw = {"context_fn": _dots_context} if cfg.remat == "dots" else {}
+
+    def run(lp, x):
+        mesh = current_mesh()
+
+        def again(lp_, x_):
+            with use_mesh(mesh):
+                return body(lp_, x_)
+
+        return checkpoint(again, lp, x, use_reentrant=False, **kw)
+
+    return run
 
 
 # ---------------------------------------------------------------------------
@@ -310,16 +324,17 @@ def _xlstm_segments(cfg):
 def _xlstm_forward(params, tokens, cfg, extra=None):
     x = embed_apply(params["embed"], tokens, cfg)
     if cfg.mlstm_chunk:
-        cell = lambda p, h: h + xlstm_mod.mlstm_train_chunked(
-            p["cell"], norm_apply(p["ln"], h, cfg), cfg, chunk=cfg.mlstm_chunk)
+        mlstm = lambda p, h: xlstm_mod.mlstm_train_chunked(p, h, cfg, chunk=cfg.mlstm_chunk)
     else:
-        cell = lambda p, h: h + xlstm_mod.mlstm_train(p["cell"], norm_apply(p["ln"], h, cfg), cfg)
+        mlstm = lambda p, h: xlstm_mod.mlstm_train(p, h, cfg)
+    cell = lambda p, h: h + batch_local(mlstm, p["cell"], norm_apply(p["ln"], h, cfg))
+    slstm = lambda p, h: xlstm_mod.slstm_train(p, h, cfg)
     mi = si = 0
     for count, is_s in _xlstm_segments(cfg):
         if is_s:
             for _ in range(count):
                 lp = _layer(params["sblocks"], si)
-                x = x + xlstm_mod.slstm_train(lp["cell"], norm_apply(lp["ln"], x, cfg), cfg)
+                x = x + batch_local(slstm, lp["cell"], norm_apply(lp["ln"], x, cfg))
                 si += 1
         else:
             x = _scan_stack(_slice_stack(params["mblocks"], mi, count), x, cfg, cell)
@@ -349,7 +364,8 @@ def _xlstm_decode(params, cache, tokens, pos, cfg):
         for i in range(done[is_s], done[is_s] + count):
             lp = _layer(params[stack], i)
             lc = _cache_layer(cache[entry], i)
-            y, nc = step(lp["cell"], norm_apply(lp["ln"], x, cfg), cfg, lc)
+            y, nc = batch_local(lambda p, h, c: step(p, h, cfg, c), lp["cell"],
+                                norm_apply(lp["ln"], x, cfg), lc)
             _store(lc, nc)
             x = x + y
         done[is_s] += count
@@ -402,7 +418,8 @@ def _shared_input(sp, x, x0, cfg):
 def _hybrid_forward(params, tokens, cfg, extra=None):
     x0 = embed_apply(params["embed"], tokens, cfg)
     x = x0
-    body = lambda p, h: h + ssm_mod.mamba2_train(p["ssm"], norm_apply(p["ln"], h, cfg), cfg)
+    mamba = lambda p, h: ssm_mod.mamba2_train(p, h, cfg)
+    body = lambda p, h: h + batch_local(mamba, p["ssm"], norm_apply(p["ln"], h, cfg))
     for li, count, shared in _z_segments(cfg):
         if count:
             x = _scan_stack(_slice_stack(params["mamba"], li, count), x, cfg, body)
@@ -428,7 +445,8 @@ def _hybrid_decode(params, cache, tokens, pos, cfg):
         for i in range(li, li + count):
             lp = _layer(params["mamba"], i)
             lc = _cache_layer(cache["mamba"], i)
-            y, nc = ssm_mod.mamba2_decode(lp["ssm"], norm_apply(lp["ln"], x, cfg), cfg, lc)
+            y, nc = batch_local(lambda p, h, c: ssm_mod.mamba2_decode(p, h, cfg, c), lp["ssm"],
+                                norm_apply(lp["ln"], x, cfg), lc)
             _store(lc, nc)
             x = x + y
         if shared:

@@ -14,7 +14,9 @@ import functools
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor, Shard
 
+from repro_torch._shardmap_compat import PartitionSpec, shard_map_compat
 from repro_torch.models.params import P
 
 
@@ -126,9 +128,26 @@ def embed_spec(cfg):
     return s
 
 
+def _gather_rows(table, ids):
+    return table[ids.long()]
+
+
 def embed_apply(p, tokens, cfg):
     # rows are gathered, then cast: the same values as casting the table
-    return p["tok"][tokens.long()].to(cdt(cfg))
+    table = p["tok"]
+    if not isinstance(table, DTensor):
+        return _gather_rows(table, tokens).to(cdt(cfg))
+    # under a mesh: each rank gathers its own token rows from the whole
+    # table (the gather and its backward, an accumulating index_put, the
+    # mesh-free ops), the table's grad summed over the token shards
+    mesh = table.device_mesh
+    lead = tuple(name for name, pl in zip(mesh.mesh_dim_names, tokens.placements)
+                 if pl == Shard(0)) if isinstance(tokens, DTensor) else ()
+    ids_spec = PartitionSpec(lead or None, *([None] * (tokens.dim() - 1)))
+    out_spec = PartitionSpec(lead or None, *([None] * tokens.dim()))
+    gather = shard_map_compat(_gather_rows, mesh=mesh, in_specs=(PartitionSpec(), ids_spec),
+                              out_specs=out_spec, manual=lead)
+    return gather(table, tokens).to(cdt(cfg))
 
 
 def unembed_apply(p, x, cfg):

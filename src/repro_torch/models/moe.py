@@ -21,6 +21,21 @@ a ``vmap`` of the global dispatch over the groups; here a leading group
 axis carries the same computation, capacity evaluated per group.  The
 products stay ``torch.matmul``: the JAX package computes them as einsums
 outside any Pallas kernel.
+
+Under a mesh (``parallel.ctx.use_mesh``) the routed experts run in a local
+region (``shard_map_compat``), as JAX's ``_grouped_dispatch`` runs under
+``shard_map``: where the (pod, data) axes divide the groups, each rank
+dispatches its own groups only, so the sort, gather and scatter never
+cross a data shard; otherwise every rank runs the whole dispatch.  The
+model axis keeps its split of the expert weights inside the region, as
+JAX's partitioner keeps it (the axis is "auto" there): under the expert
+rules (experts over ``model``) each rank runs the FFN of its own experts
+on their rows of the dispatch, under the TP rules (``expert_ffn`` over
+``model``) its slice of every expert's hidden width; either way its
+output is a partial sum over ``model``, which ``DTensor`` reduces where
+it is next read.  Only the axes that split ``embed`` (FSDP's ``data``)
+are gathered.  The shared expert runs outside the region on the
+``DTensor`` s.
 """
 from __future__ import annotations
 
@@ -28,9 +43,12 @@ from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor, Shard
 
+from repro_torch._shardmap_compat import PartitionSpec, axis_sizes, shard_map_compat
 from repro_torch.models.layers import cdt
 from repro_torch.models.params import P
+from repro_torch.parallel.ctx import current_mesh
 
 
 def moe_spec(cfg):
@@ -99,9 +117,11 @@ def _experts(x: torch.Tensor, w: torch.Tensor, dt) -> torch.Tensor:
     return torch.matmul(x, w.to(dt))
 
 
-def _dispatch_ffn(p, xg, cfg, cap: int):
+def _dispatch_ffn(p, xg, cfg, cap: int, e0: int = 0):
     """Capacity dispatch + expert SwiGLU over G token groups.
-    xg: (G, T, d) → (G, T, d)."""
+    xg: (G, T, d) → (G, T, d).  ``p``'s expert weights may hold a run of
+    the experts alone, from expert ``e0`` on (a rank's own, under a mesh):
+    then only those experts' rows run, and the others add nothing."""
     dt = cdt(cfg)
     g, t, d = xg.shape
     e, k = cfg.n_experts, cfg.top_k
@@ -117,10 +137,14 @@ def _dispatch_ffn(p, xg, cfg, cap: int):
     # experts first: (E, G·cap, d)
     xe = xe[:, :-1].reshape(g, e, cap, d).transpose(0, 1).reshape(e, g * cap, d)
 
-    # expert FFN (SwiGLU)
+    # expert FFN (SwiGLU) of the experts held, e0 … e0 + el
+    el = p["wi"].shape[0]
+    xe = xe[e0:e0 + el]
     h = _experts(xe, p["wi"], dt)
     gate = _experts(xe, p["wg"], dt)
-    ye = _experts(F.silu(gate) * h, p["wo"], dt)  # (E, G·cap, d)
+    ye = _experts(F.silu(gate) * h, p["wo"], dt)  # (el, G·cap, d)
+    if el < e:
+        ye = F.pad(ye, (0, 0, 0, 0, e0, e - e0 - el))
     ye = ye.reshape(e, g, cap, d).transpose(0, 1).reshape(g, e * cap, d)
 
     return scatter_back(ye, r, t)
@@ -155,6 +179,42 @@ def capacity(cfg, tokens: int) -> tuple:
     return g, int(max(1, round(tokens / g * k / e * cfg.capacity_factor)))
 
 
+def _model_split(w, mesh):
+    """The dim of expert weight ``w`` that the mesh's ``model`` axis
+    splits, or None."""
+    if not isinstance(w, DTensor) or "model" not in mesh.mesh_dim_names:
+        return None
+    pl = w.placements[mesh.mesh_dim_names.index("model")]
+    return pl.dim if isinstance(pl, Shard) else None
+
+
+def _routed_under_mesh(p, xg, cfg, cap: int, mesh):
+    """``_dispatch_ffn`` of (G, T, d) groups in a local region over ``mesh``:
+    each rank's own groups when the (pod, data) axes divide G > 1, else all
+    of them on every rank; each rank's own experts, or its slice of their
+    hidden width, where ``model`` splits the expert weights."""
+    sizes = axis_sizes(mesh)
+    manual = tuple(a for a in ("pod", "data") if a in sizes)
+    shards = 1
+    for a in manual:
+        shards *= sizes[a]
+    if xg.shape[0] == 1 or xg.shape[0] % shards:
+        manual = ()
+    spec = PartitionSpec(manual or None, None, None)
+    routed = {k: p[k] for k in ("router", "wi", "wg", "wo")}
+    wspecs = {"router": PartitionSpec()}
+    for k in ("wi", "wg", "wo"):
+        split = _model_split(routed[k], mesh)
+        wspecs[k] = PartitionSpec(*("model" if dim == split else None for dim in range(3)))
+    split = _model_split(routed["wi"], mesh)
+    by_model = ("model",) if split is not None else ()
+    e0 = mesh.get_local_rank("model") * (cfg.n_experts // sizes["model"]) if split == 0 else 0
+    fn = shard_map_compat(lambda p_, xx: _dispatch_ffn(p_, xx, cfg, cap, e0), mesh=mesh,
+                          in_specs=(wspecs, spec), out_specs=spec, manual=manual + by_model,
+                          partial=by_model)
+    return fn(routed, xg)
+
+
 def moe_apply(p, x, cfg):
     """x: (B, S, d) → (B, S, d).  Static capacity = T·k/E·cf per expert.
 
@@ -166,7 +226,12 @@ def moe_apply(p, x, cfg):
     t = b * s
     g, cap = capacity(cfg, t)
     xf = x.reshape(t, d)
-    y = _dispatch_ffn(p, xf.reshape(g, t // g, d), cfg, cap).reshape(t, d)
+    mesh = current_mesh()
+    if mesh is None:
+        y = _dispatch_ffn(p, xf.reshape(g, t // g, d), cfg, cap)
+    else:
+        y = _routed_under_mesh(p, xf.reshape(g, t // g, d), cfg, cap, mesh)
+    y = y.reshape(t, d)
 
     if cfg.n_shared:
         sp = p["shared"]

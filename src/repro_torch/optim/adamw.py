@@ -10,12 +10,18 @@ that donates its trees (``donate=True``, the JAX train step's
 ``donate_argnums``) gets them back updated; any other call updates copies
 and returns new trees, as the JAX functions do.  At granite-moe-3b's 3.4 B
 parameters the new trees would need another 54 GB of fp32 beside the old
-ones."""
+ones.
+
+Under a mesh the leaves are ``DTensor`` s: the global norm is a sum over
+them (``DTensor`` reduces it across the ranks), and the clip's scaling and
+AdamW's passes, which are elementwise, run on each rank's local shards
+(grads, moments and params placed alike), in place."""
 from __future__ import annotations
 
 from typing import Any, NamedTuple
 
 import torch
+from torch.distributed.tensor import DTensor
 
 
 class OptState(NamedTuple):
@@ -54,11 +60,13 @@ def clip_by_global_norm(grads, max_norm: float, *, donate: bool = False):
     """``grads`` scaled so their global L2 norm is at most ``max_norm``, and
     the norm before scaling (f32).  ``donate`` scales ``grads`` in place."""
     gn = torch.sqrt(sum(torch.sum(torch.square(g.float())) for g in tree_leaves(grads)))
+    if isinstance(gn, DTensor):
+        gn = gn.full_tensor()
     scale = torch.clamp(max_norm / (gn + 1e-9), max=1.0)
     if not donate:
         grads = tree_map(torch.clone, grads)
     for g in tree_leaves(grads):
-        g.mul_(scale)
+        (g.to_local() if isinstance(g, DTensor) else g).mul_(scale)
     return grads, gn
 
 
@@ -101,6 +109,7 @@ def adamw_update(
 
     def upd_(g, m, v, p):
         decay = weight_decay and p.dim() >= 2  # no decay on norms/biases (1-D)
+        g, m, v, p = (x.to_local() if isinstance(x, DTensor) else x for x in (g, m, v, p))
         for g, m, v, p in _chunks(g, m, v, p):
             gf = g.float()
             m.mul_(b1).add_(gf * (1 - b1))

@@ -1,6 +1,12 @@
-"""Parallel layer of the port: so far the gradient quantizers of
-``src/repro/parallel/compress.py``.  The mesh, the shardings and the
-compressed all-reduce wait for ROADMAP.md queue A, item 9."""
+"""Parallel layer of the port (``src/repro/parallel/``): batch and cache
+shardings, the int8 compressed gradient all-reduce, the GPipe stage loop
+(``parallel.pipeline``) and the ambient mesh (``parallel.ctx``)."""
+from repro_torch.parallel.sharding import (
+    batch_pspecs,
+    batch_shardings,
+    cache_pspecs,
+    cache_shardings,
+)
 from repro_torch.parallel.compress import (
     compressed_grad_reduce,
     dequantize_int8,
@@ -8,6 +14,10 @@ from repro_torch.parallel.compress import (
 )
 
 __all__ = [
+    "batch_pspecs",
+    "batch_shardings",
+    "cache_pspecs",
+    "cache_shardings",
     "quantize_int8",
     "dequantize_int8",
     "compressed_grad_reduce",

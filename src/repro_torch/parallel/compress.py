@@ -4,10 +4,11 @@
 The JAX module compresses the cross-pod hop of a hierarchical gradient
 all-reduce: int8 payloads with one f32 scale per ``BLOCK`` values, and the
 quantization residual carried into the next step (error feedback), so the
-compression bias vanishes.  The quantizers are ported here; the reduction
-itself (``compressed_grad_reduce``, a ``shard_map`` over the pod axis)
-needs the parallel layer and raises until it lands (ROADMAP.md queue A,
-item 9).
+compression bias vanishes.  ``compressed_grad_reduce`` is that hop over a
+mesh's pod axis: each rank quantizes its own contribution, the
+dequantized f32 values are summed over the pod group
+(``dist.all_reduce`` on ``mesh.get_group(pod_axis)``, JAX's ``psum``) and
+divided by the number of pods.
 
 ``torch.round`` and ``jnp.round`` both round half to even, and every
 quotient is a true f32 division as JAX's (never a product with a
@@ -21,6 +22,8 @@ from __future__ import annotations
 from typing import Tuple
 
 import torch
+import torch.distributed as dist
+from torch.distributed.tensor import DTensor
 
 from repro_torch.optim.adamw import tree_map
 
@@ -58,12 +61,33 @@ def _ef_quantize(x, err):
     return q, scale, target - deq
 
 
-def compressed_grad_reduce(grads, err, mesh=None, pod_axis: str = "pod"):
-    """The int8 all-reduce over the pod axis of a mesh: not ported yet."""
-    raise NotImplementedError(
-        "compressed_grad_reduce needs a mesh, which is not ported yet (ROADMAP.md queue A, "
-        "item 9: parallelism); quantize_int8, dequantize_int8 and _ef_quantize are"
-    )
+def compressed_grad_reduce(grads, err, mesh, pod_axis: str = "pod"):
+    """All-reduce ``grads`` over ``pod_axis`` of ``mesh`` with int8
+    compression and error feedback.  grads / err: trees of equal structure
+    (nested dicts of tensors), already reduced over the intra-pod data
+    axis; this rank's contribution.  Returns (the mean over the pods, the
+    new err).  A ``DTensor`` leaf is reduced through its local shard and
+    returned placed as it came."""
+    group = mesh.get_group(pod_axis)
+    npods = mesh.size(mesh.mesh_dim_names.index(pod_axis))
+
+    def reduce_leaf(g, e):
+        local_g = g.to_local() if isinstance(g, DTensor) else g
+        local_e = e.to_local() if isinstance(e, DTensor) else e
+        q, scale, e_new = _ef_quantize(local_g, local_e)
+        total = dequantize_int8(q, scale, local_g.shape, torch.float32)
+        dist.all_reduce(total, group=group)
+        out = (total / torch.tensor(float(npods), device=total.device)).to(local_g.dtype)
+        if isinstance(g, DTensor):
+            out = DTensor.from_local(out, g.device_mesh, g.placements, run_check=False)
+        if isinstance(e, DTensor):
+            e_new = DTensor.from_local(e_new, e.device_mesh, e.placements, run_check=False)
+        return out, e_new
+
+    pairs = tree_map(reduce_leaf, grads, err)
+    first = lambda t: t[0] if isinstance(t, tuple) else {k: first(v) for k, v in t.items()}
+    second = lambda t: t[1] if isinstance(t, tuple) else {k: second(v) for k, v in t.items()}
+    return first(pairs), second(pairs)
 
 
 def init_error_feedback(params):

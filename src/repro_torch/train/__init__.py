@@ -1,4 +1,9 @@
-from repro_torch.train.step import TrainStepOut, make_prefill_step, make_train_step
+from repro_torch.train.step import (
+    TrainStepOut,
+    make_prefill_step,
+    make_serve_step,
+    make_train_step,
+)
 from repro_torch.train.trainer import SimulatedFailure, StragglerMonitor, Trainer, TrainerConfig
 
 __all__ = [
@@ -8,5 +13,6 @@ __all__ = [
     "Trainer",
     "TrainerConfig",
     "make_prefill_step",
+    "make_serve_step",
     "make_train_step",
 ]

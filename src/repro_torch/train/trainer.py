@@ -3,7 +3,9 @@
   * durable checkpoints via the link-and-persist manifest protocol
     (checkpoint/manager.py) at a configurable cadence;
   * auto-resume: on construction the Trainer restores the latest committed
-    manifest onto its device;
+    manifest onto its device, or onto its mesh (elastic: the restore
+    re-shards to the *current* mesh, which may differ from the mesh, or
+    the single device, that wrote the checkpoint);
   * preemption handling: SIGTERM/SIGINT request a final checkpoint + clean
     exit (the cluster scheduler restarts the job, which auto-resumes);
   * failure injection: `fail_at_step` simulates a hard crash (tests drive
@@ -12,10 +14,11 @@
     `straggler_factor`× the EMA are counted and surfaced in metrics.
 
 The Trainer runs on the CUDA card unless the caller names another device,
-and raises when there is none.  Its step donates the params and optimizer
-state it owns (updated in place, as JAX's jitted step donates them), so a
-step needs no second copy of either.  Elastic restore onto another mesh waits for
-the parallel layer (ROADMAP.md queue A, item 9).
+and raises when there is none.  With a ``mesh`` it places its params and
+AdamW state on it (``train.step.state_shardings``) and runs the mesh's
+train step, on the mesh's device type.  Its step donates the params and
+optimizer state it owns (updated in place, as JAX's jitted step donates
+them), so a step needs no second copy of either.
 """
 from __future__ import annotations
 
@@ -26,12 +29,13 @@ from typing import Callable, Iterator, Optional
 
 import torch
 
+from repro_torch._shardmap_compat import place
 from repro_torch.checkpoint import CheckpointManager, latest_step, restore
 from repro_torch.kernels._lib import resolve_device
 from repro_torch.models import backbone, init_params
 from repro_torch.models.config import ModelConfig
 from repro_torch.optim.adamw import adamw_init
-from repro_torch.train.step import make_train_step
+from repro_torch.train.step import make_train_step, state_shardings
 
 
 @dataclasses.dataclass
@@ -71,8 +75,13 @@ class Trainer:
         tcfg: TrainerConfig,
         data_iter_factory: Callable[[int], Iterator[dict]],
         device=None,
+        *,
+        mesh=None,
     ):
+        if device is None and mesh is not None:
+            device = mesh.device_type
         self.device = resolve_device(device, "Trainer")
+        self.mesh = mesh
         self.cfg = model_cfg
         self.tcfg = tcfg
         self.data_iter_factory = data_iter_factory
@@ -80,17 +89,21 @@ class Trainer:
         self.monitor = StragglerMonitor(tcfg.straggler_factor)
         self._stop = False
         self.step_fn = make_train_step(
-            model_cfg, lr_peak=tcfg.lr_peak, grad_clip=tcfg.grad_clip,
+            model_cfg, mesh, lr_peak=tcfg.lr_peak, grad_clip=tcfg.grad_clip,
             microbatch=tcfg.microbatch, donate=True,
         )
 
         # ---- init or resume ---------------------------------------------
         self.step = 0
         params = init_params(backbone.model_spec(model_cfg), self.device)
+        shardings = state_shardings(model_cfg, mesh) if mesh is not None else None
+        if shardings is not None:
+            params = place(params, shardings["params"])
         opt = adamw_init(params)
         last = latest_step(tcfg.ckpt_dir)
         if last is not None:
-            state = restore(tcfg.ckpt_dir, last, {"params": params, "opt": opt}, self.device)
+            state = restore(tcfg.ckpt_dir, last, {"params": params, "opt": opt}, shardings,
+                            device=self.device)
             params, opt = state["params"], state["opt"]
             self.step = last
             self.resumed_from = last

@@ -45,7 +45,9 @@ def test_port_files_found():
     assert {"abtree.py", "rounds.py", "forest.py", "elimination.py", "chip_smoke.py", "_lib.py",
             "engine.py", "pages.py", "backbone.py", "attention.py", "trainer.py", "step.py",
             "adamw.py", "manager.py", "pipeline.py", "tree_kernel_ab.py", "durable.py",
-            "faults.py", "xlstm.py", "ssm.py"} <= names
+            "faults.py", "xlstm.py", "ssm.py", "_shardmap_compat.py", "mesh.py", "ctx.py",
+            "sharding.py", "compress.py", "inputs.py", "dryrun.py", "roofline.py",
+            "optimized.py"} <= names
 
 
 @pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(ROOT)))
@@ -300,3 +302,38 @@ def test_flash_attention_backward_is_the_plain_versions_autograd(monkeypatch):
     assert launches == [1]
     for a, b in zip(*grads):
         assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("name", ["decode_attention", "flash_attention"])
+def test_dtensor_inputs_reach_the_kernel_as_local_tensors(monkeypatch, name):
+    """Under a mesh the attention wrappers get ``DTensor`` s: with every
+    tensor reporting CUDA, the wrapper runs again on each rank's local
+    shard, and the kernel launcher gets plain tensors, never a ``DTensor``;
+    the plain version is never called."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard, distribute_tensor
+
+    from repro_torch.launch.mesh import make_host_mesh, shutdown
+
+    _, wrapper, args, kw, kmod, kfn, rmod, rfn = next(c for c in _wrappers() if c[0] == name)
+    seen = []
+
+    def kernel_spy(*a, **k):
+        seen.append([type(x) for x in a if isinstance(x, torch.Tensor)])
+        raise _Reached
+
+    def plain_trap(*a, **k):
+        raise AssertionError(f"{name}: a DTensor input reached the plain version")
+
+    monkeypatch.setattr(_lib, "on_cuda", lambda t: True)
+    monkeypatch.setattr(kmod, kfn, kernel_spy)
+    monkeypatch.setattr(rmod, rfn, plain_trap)
+    try:
+        mesh = make_host_mesh("cpu")
+        placed = [distribute_tensor(a, mesh, [Shard(0), Replicate()])
+                  if isinstance(a, torch.Tensor) else a for a in args]
+        assert all(isinstance(a, DTensor) for a in placed[:3])
+        with pytest.raises(_Reached):
+            wrapper(*placed, **kw)
+    finally:
+        shutdown()
+    assert seen == [[torch.Tensor] * 3]

@@ -1120,3 +1120,90 @@ def test_recorded_card_history_passes_witness_and_equals_cpu(cuda, mode, shards)
     assert rep.rounds == 7 and rep.lanes > 2500 and rep.state
     if mode == "elim":
         assert rep.eliminated > 0
+
+
+def test_host_mesh_on_card_equals_meshfree(cuda):
+    """On the 1-rank NCCL host mesh: a reduced qwen2 train step (DTensor
+    params and AdamW state) gives the mesh-free step's loss and params bit
+    for bit, with B6 once a layer in each; a serve step with its cache
+    placed by ``cache_shardings`` gives ``forward_decode``'s logits bit for
+    bit, with B7 once a layer in each; ``compressed_grad_reduce`` over a
+    (pod=1, data=1, model=1) mesh equals ``dequantize_int8(_ef_quantize)``
+    bit for bit.  No DTensor reaches a kernel launcher (the launches are
+    counted where a launcher runs)."""
+    from repro_torch._shardmap_compat import place
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import make_host_mesh, make_mesh, shutdown
+    from repro_torch.models import backbone, reduced
+    from repro_torch.models.params import init_params
+    from repro_torch.optim import adamw_init
+    from repro_torch.optim.adamw import tree_leaves, tree_map
+    from repro_torch.parallel import compress
+    from repro_torch.parallel.sharding import cache_shardings
+    from repro_torch.train import make_serve_step, make_train_step
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = reduced(get_config("qwen2-0.5b")).replace(dtype="bfloat16")
+    params = init_params(backbone.model_spec(cfg), cuda, seed=3)
+    tokens = torch.as_tensor(np.random.default_rng(3).integers(0, cfg.vocab, (4, 64)),
+                             dtype=torch.int32, device=cuda)
+    try:
+        mesh = make_host_mesh()
+        outs, launches = [], []
+        for m in (None, mesh):
+            _lib.reset_counts()
+            outs.append(make_train_step(cfg, m)(tree_map(torch.clone, params), adamw_init(params),
+                                                {"tokens": tokens}, 3))
+            launches.append(fa_kernel.FLASH_ATTENTION.launches)
+        assert launches == [cfg.n_layers] * 2
+        assert torch.equal(outs[0].metrics["loss"], outs[1].metrics["loss"])
+        for a, b in zip(tree_leaves(outs[0].params), tree_leaves(outs[1].params)):
+            assert torch.equal(a, b.full_tensor())
+        want_cache = backbone.init_cache(cfg, 4, 64, cuda)
+        cache = place(backbone.init_cache(cfg, 4, 64, cuda), cache_shardings(cfg, 4, 64, mesh))
+        serve = make_serve_step(cfg, mesh, 4, 64)
+        for pos in range(3):
+            _lib.reset_counts()
+            want, _ = backbone.forward_decode(params, want_cache, tokens[:, pos], pos, cfg)
+            got, _ = serve(params, cache, tokens[:, pos], pos)
+            assert da_kernel.DECODE_ATTENTION.launches == 2 * cfg.n_layers
+            assert torch.equal(got.full_tensor(), want)
+        mesh3 = make_mesh((1, 1, 1), ("pod", "data", "model"), "cuda")
+        g = {"w": torch.randn(3, 1000, device=cuda)}
+        e = compress.init_error_feedback(g)
+        mean, _ = compress.compressed_grad_reduce(g, e, mesh3)
+        q, s, _ = compress._ef_quantize(g["w"], e["w"])
+        assert torch.equal(mean["w"], compress.dequantize_int8(q, s, (3, 1000), torch.float32))
+    finally:
+        shutdown()
+
+
+@pytest.mark.parametrize("arch", ["deepseek-v3-671b", "yi-34b"])
+def test_mesh_train_step_at_the_archs_remat_equals_meshfree(cuda, arch):
+    """On the 1-rank NCCL host mesh, a reduced train step at the arch's own
+    ``remat`` (``dots`` for both) gives the mesh-free step's loss and params
+    bit for bit: the card's autograd engine runs the recompute on a thread
+    of its own, and it reruns the forward's local regions under the mesh."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import make_host_mesh, shutdown
+    from repro_torch.models import backbone, reduced
+    from repro_torch.models.params import init_params
+    from repro_torch.optim import adamw_init
+    from repro_torch.optim.adamw import tree_leaves, tree_map
+    from repro_torch.train import make_train_step
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = reduced(get_config(arch))
+    assert cfg.remat == "dots"
+    params = init_params(backbone.model_spec(cfg), cuda, seed=5)
+    tokens = torch.as_tensor(np.random.default_rng(5).integers(0, cfg.vocab, (4, 64)),
+                             dtype=torch.int32, device=cuda)
+    try:
+        mesh = make_host_mesh()
+        want, got = (make_train_step(cfg, m)(tree_map(torch.clone, params), adamw_init(params),
+                                             {"tokens": tokens}, 3) for m in (None, mesh))
+        assert torch.equal(want.metrics["loss"], got.metrics["loss"])
+        for a, b in zip(tree_leaves(want.params), tree_leaves(got.params)):
+            assert torch.equal(a, b.full_tensor())
+    finally:
+        shutdown()

@@ -301,6 +301,10 @@ def test_trainer_launcher_and_builders_need_a_device_without_a_card(monkeypatch,
     with pytest.raises(RuntimeError, match="no CUDA device"):
         restore(str(tmp_path), 0, {})
     from repro_torch.launch import train as launch
+    from repro_torch.launch.mesh import make_host_mesh
+
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        make_host_mesh()
 
     with pytest.raises(RuntimeError, match="no CUDA device"):
         launch.main(["--arch", ARCH, "--ckpt", str(tmp_path / "c")])
@@ -317,6 +321,19 @@ def test_launcher_runs_and_refuses_a_mesh(tmp_path, capsys):
     again = launch.main(argv[:4] + ["4"] + argv[5:], device="cpu")
     assert again["resumed_from"] == 2 and again["final_step"] == 4
     assert "resumed from durable checkpoint at step 2" in capsys.readouterr().out
-    with pytest.raises(SystemExit):
-        launch.parse_args(["--arch", ARCH, "--mesh", "single"])
-    assert "ROADMAP" in capsys.readouterr().err
+    # on the 1-rank host mesh (gloo on the CPU): DTensor state, the same losses
+    from repro_torch.launch.mesh import shutdown
+
+    try:
+        meshed = launch.main(argv[:-1] + [str(tmp_path / "mesh"), "--mesh", "host"], device="cpu")
+        assert meshed["final_step"] == 2 and meshed["final_loss"] == out["final_loss"]
+        resumed = launch.main(argv[:4] + ["4"] + argv[5:-1] + [str(tmp_path / "mesh"), "--mesh",
+                                                                 "host"], device="cpu")
+        assert resumed["resumed_from"] == 2 and resumed["final_loss"] == again["final_loss"]
+        # the production meshes need a world of 256 / 512 ranks: the dry-run's
+        with pytest.raises(ValueError, match="dry-run"):
+            launch.build_trainer(launch.parse_args(["--arch", ARCH, "--reduced", "--ckpt",
+                                                    str(tmp_path / "x"), "--mesh", "single"]),
+                                 device="cpu")
+    finally:
+        shutdown()

@@ -155,8 +155,34 @@ def test_error_feedback_bit_equal_jax_and_unbiased():
 
 
 def test_compressed_reduce_needs_the_parallel_layer():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        compress.compressed_grad_reduce({}, {}, None)
+    """The reduce over a 1-rank (pod, data, model) gloo mesh: one pod, so
+    the mean is this rank's dequantized payload, bit-equal to
+    ``dequantize_int8(_ef_quantize(...))`` and to JAX's, and the residual
+    ``_ef_quantize``'s."""
+    from repro_torch.launch.mesh import make_host_mesh, make_mesh, shutdown
+
+    rng = np.random.default_rng(4)
+    g = {"w": rng.standard_normal((3, 300)).astype(np.float32),
+         "b": {"c": rng.standard_normal(7).astype(np.float32)}}
+    e = {"w": (rng.standard_normal((3, 300)) * 1e-3).astype(np.float32),
+         "b": {"c": np.zeros(7, np.float32)}}
+    tg, te = (tree_map(torch.from_numpy, t) for t in (g, e))
+    try:
+        make_host_mesh("cpu")
+        mesh = make_mesh((1, 1, 1), ("pod", "data", "model"), "cpu")
+        mean, err = compress.compressed_grad_reduce(tg, te, mesh)
+    finally:
+        shutdown()
+    for path in (("w",), ("b", "c")):
+        x, ex, got, got_e = tg, te, mean, err
+        for k in path:
+            x, ex, got, got_e = x[k], ex[k], got[k], got_e[k]
+        q, s, want_e = compress._ef_quantize(x, ex)
+        want = compress.dequantize_int8(q, s, x.shape, x.dtype)
+        assert torch.equal(got, want) and torch.equal(got_e, want_e)
+        jq, js, _ = jcompress._ef_quantize(jnp.asarray(x.numpy()), jnp.asarray(ex.numpy()))
+        np.testing.assert_array_equal(
+            got.numpy(), np.asarray(jcompress.dequantize_int8(jq, js, x.shape, jnp.float32)))
     err = compress.init_error_feedback({"a": torch.ones(3, dtype=torch.bfloat16),
                                         "b": {"c": torch.ones(2)}})
     assert err["a"].dtype == torch.float32 and torch.equal(err["b"]["c"], torch.zeros(2))
