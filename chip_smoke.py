@@ -157,10 +157,22 @@ csrc`` (one ``nvcc`` per source, in parallel, into ``build/``), then:
    the card and on the CPU, bit for bit; a one-stage ``pipeline_apply``
    equal to its stage; granite's MoE layer (``moe_groups=32``, 2 x 1,024
    tokens) under the mesh equal to the mesh-free path; the process group
-   destroyed; then the dry-run CLI in a subprocess on deepseek-v3-671b
-   ``decode_32k`` over the fake 512-rank multi-pod mesh with ``--suite opt``
-   (qwen2-0.5b's cell instead past 60 s), its per-device bytes and FLOPs
-   printed;
+   destroyed; beside it, in subprocesses started first, the dry-run CLI on
+   deepseek-v3-671b ``decode_32k`` over the fake 512-rank multi-pod mesh
+   with ``--suite opt`` and its depth-probe correction (``correct_cell``:
+   the same cell at 1-3 layers, full width), whose predicted FLOPs, bytes
+   and collective bytes must equal the full-depth record's (both on
+   qwen2-0.5b's cell instead past their time), the record's per-device
+   bytes and FLOPs and its row of the report's roofline table printed;
+   and, beside the phase too, the examples: ``examples/quickstart_torch.py``,
+   ``durable_store_torch.py``, ``serve_engine_torch.py`` and
+   ``train_lm_torch.py`` on the card, each in a subprocess that counts its
+   kernel launches: the tree's elimination (no slot write for 64 ops on
+   one key), the recovered items, the durable commits, fsyncs and flush
+   bytes of p-Elim and p-OCC and the serve engine's index counters must be
+   the integers the JAX examples print on the CPU, and the trainer crashed
+   at step 6 must resume from its step-5 checkpoint to the final loss of
+   an uninterrupted run; K1, K3, B6 and B7 must each have launched;
 8. replays one main-path call of each kernel: kernel and plain PyTorch
    version on the same CUDA tensors must agree (the tree kernels and the
    leaf probe bit for bit; the two attention kernels within 2 ulps of
@@ -343,6 +355,24 @@ PARALLEL_MOE_ARCH, PARALLEL_MOE_TOKENS = "granite-moe-3b-a800m", (2, 1024)
 DRYRUN_CELL = ("deepseek-v3-671b", "decode_32k", "multi", "opt")
 DRYRUN_FALLBACK = ("qwen2-0.5b", "decode_32k", "multi", "baseline")
 DRYRUN_TIMEOUT_S = 60
+CORRECTION_TIMEOUT_S = 90  # three probes at 1-3 layers, each traced from cold caches
+CORRECTION_TOL = 0  # the counts are bit-equal across processes (PERF.md §6): exact
+# the examples (examples/*_torch.py) on the card and what each must print: the
+# JAX examples' integers on the CPU (tests/test_torch_examples.py holds them equal)
+EXAMPLE_LINES = {
+    "quickstart": ["find(42) → 4200", "64 ops on one key → physical slot writes: 0, eliminated: 64",
+                   "recovered contents: {1: 10, 2: 20, 3: 30}"],
+    "durable_store": ["recovered (crashed round absent): {1: 10, 2: 20, 3: 30, 4: 40}",
+                      "p-elim: commits=5 fsyncs=15 flush_bytes=169801",
+                      "p-occ: commits=51 fsyncs=143 flush_bytes=175885"],
+}
+EXAMPLE_SERVE = {"/slot_writes": 8, "/searches": 128, "/rounds": 16, "/eliminated": 0,
+                 "/cache_hit_blocks": 8, "/metrics/counters/admitted": 12,
+                 "/metrics/counters/decode_tokens": 48, "/session_scans": 3}
+EXAMPLE_TRAIN = ["--steps", "10"]
+EXAMPLE_FAIL_AT = 6  # checkpoints every 5 steps: the resume starts at step 5
+EXAMPLE_KERNELS = ("descend_probe", "elim_combine", "flash_attention", "decode_attention")
+EXAMPLE_TIMEOUT_S = 240
 
 
 def log(msg: str) -> None:
@@ -2694,30 +2724,29 @@ def run_family_path(torch, core, lib, device):
 # ----------------------------------------------------------------------------
 
 
-def start_dryrun(cell):
-    """Start one dry-run cell by the CLI in a subprocess (its own fake world
-    of 256 / 512 ranks, meta tensors, the host's CPU alone), to run beside
-    the rest of the phase; killed at exit if still running."""
+def _spawn(tag, cell, cmd, env=None):
+    """Start ``cmd`` (a list; ``{out}`` in it names the JSON file it writes)
+    from the checkout in a subprocess, to run beside the phases; killed at
+    exit if still running."""
     import os
     import tempfile
     import weakref
 
-    arch, shape, mesh, suite = cell
     tmp = tempfile.TemporaryDirectory()
-    out = Path(tmp.name) / "dryrun.json"
-    env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
-    cmd = [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch, "--shape", shape,
-           "--mesh", mesh, "--suite", suite, "--out", str(out), "--force"]
-    logf = open(Path(tmp.name) / "dryrun.log", "w")
-    proc = subprocess.Popen(cmd, stdout=logf, stderr=subprocess.STDOUT, env=env, cwd=ROOT)
+    out = Path(tmp.name) / "out.json"
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src"), **(env or {})}
+    logs = (open(Path(tmp.name) / "stdout", "w"), open(Path(tmp.name) / "stderr", "w"))
+    proc = subprocess.Popen([str(out) if c == "{out}" else c for c in cmd], stdout=logs[0],
+                            stderr=logs[1], env=env, cwd=ROOT)
     weakref.finalize(proc, proc.kill)
-    return cell, proc, tmp, out, logf, time.perf_counter()
+    return tag, cell, proc, tmp, out, logs, time.perf_counter()
 
 
-def finish_dryrun(run, timeout_s):
-    """The started cell's record, or None past ``timeout_s`` from its start
-    (the subprocess is then killed)."""
-    cell, proc, tmp, out, logf, t0 = run
+def _finish(run, timeout_s):
+    """``(output file's JSON, standard output, seconds from the start)``,
+    or None past ``timeout_s`` from its start (the subprocess is then
+    killed)."""
+    tag, cell, proc, tmp, out, logs, t0 = run
     try:
         try:
             proc.wait(timeout=max(0.0, timeout_s - (time.perf_counter() - t0)))
@@ -2725,18 +2754,67 @@ def finish_dryrun(run, timeout_s):
             proc.kill()
             proc.wait()
             return None
+        for f in logs:
+            f.close()
+        stdout, stderr = ((Path(tmp.name) / n).read_text() for n in ("stdout", "stderr"))
         if proc.returncode != 0:
-            log_text = (Path(tmp.name) / "dryrun.log").read_text()
-            raise AssertionError(f"dry-run {cell} failed:\n{log_text[-3000:]}")
-        arch, shape, mesh, _ = cell
-        rec = json.loads(out.read_text())[f"{arch}|{shape}|{mesh}"]
-        rec["wall_s"] = time.perf_counter() - t0
+            raise AssertionError(f"{tag} {cell} failed:\n{stdout[-2000:]}\n{stderr[-3000:]}")
+        data = json.loads(out.read_text()) if out.exists() else None
+        return data, stdout, time.perf_counter() - t0
     finally:
-        logf.close()
+        for f in logs:
+            f.close()
         tmp.cleanup()
+
+
+def start_dryrun(cell):
+    """Start one dry-run cell by the CLI in a subprocess (its own fake world
+    of 256 / 512 ranks, meta tensors, the host's CPU alone)."""
+    arch, shape, mesh, suite = cell
+    return _spawn("dry-run", cell, [
+        sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch, "--shape", shape,
+        "--mesh", mesh, "--suite", suite, "--out", "{out}", "--force"])
+
+
+def finish_dryrun(run, timeout_s):
+    """The started cell's record, or None past ``timeout_s``."""
+    done = _finish(run, timeout_s)
+    if done is None:
+        return None
+    arch, shape, mesh, _ = run[1]
+    rec = done[0][f"{arch}|{shape}|{mesh}"]
+    rec["wall_s"] = done[2]
     if not rec.get("ok") or rec["status"] != "run" or rec["cost"]["flops"] <= 0:
-        raise AssertionError(f"dry-run {cell}: {rec}")
+        raise AssertionError(f"dry-run {run[1]}: {rec}")
     return rec
+
+
+_CORRECT = """
+import json, sys
+from repro_torch.analysis.scan_correction import correct_cell
+from repro_torch.configs.optimized import overrides_for
+arch, shape, mesh, suite, out = sys.argv[1:]
+ov = overrides_for(arch, shape) if suite == "opt" else None
+with open(out, "w") as f:
+    json.dump(correct_cell(arch, shape, mesh, overrides=ov), f)
+"""
+
+
+def start_correction(cell):
+    """Start the depth-probe correction of one dry-run cell
+    (``analysis.scan_correction.correct_cell``: the cell at the probe depths,
+    full width) in a subprocess, one process for all its probes."""
+    return _spawn("correction", cell, [sys.executable, "-c", _CORRECT, *cell, "{out}"])
+
+
+def finish_correction(run, timeout_s):
+    done = _finish(run, timeout_s)
+    if done is None:
+        return None
+    corr = dict(done[0], wall_s=done[2])
+    if not corr.get("corrected"):
+        raise AssertionError(f"correction {run[1]}: {corr}")
+    return corr
 
 
 def run_parallel_path(torch, lib, device):
@@ -2755,8 +2833,9 @@ def run_parallel_path(torch, lib, device):
     ``pipeline_apply`` with one stage equal to the stage; granite's MoE
     layer (grouped, ``moe_groups=32``) under the mesh equal to the
     mesh-free path.  The process group is destroyed at the end.  Beside it
-    all, in a subprocess started first, the dry-run of DRYRUN_CELL
-    (DRYRUN_FALLBACK past DRYRUN_TIMEOUT_S)."""
+    all, in two subprocesses started first, the dry-run of DRYRUN_CELL and
+    its depth-probe correction: returned in flight with the summary, for
+    ``finish_dryruns``."""
     import tempfile
 
     from torch.distributed.tensor import DTensor, Replicate, Shard, distribute_tensor
@@ -2776,7 +2855,7 @@ def run_parallel_path(torch, lib, device):
     from repro_torch.train import make_serve_step
 
     t0 = time.perf_counter()
-    dry = start_dryrun(DRYRUN_CELL)
+    pending = (start_dryrun(DRYRUN_CELL), start_correction(DRYRUN_CELL))
     lib.reset_counts()
     flash, decode = lib.counter("flash_attention"), lib.counter("decode_attention")
     on_card = device.type == "cuda"
@@ -2946,15 +3025,35 @@ def run_parallel_path(torch, lib, device):
     if on_card:
         torch.cuda.empty_cache()
 
+    out["card_seconds"] = time.perf_counter() - t0
+    out["t0"] = t0
+    return out, pending
+
+
+def finish_dryruns(out, pending):
+    """Wait for the parallel phase's dry-run and correction subprocesses;
+    both fall back to DRYRUN_FALLBACK if either is past its time.  The
+    correction's predicted FLOPs, bytes and collective bytes must equal the
+    full-depth record's (within CORRECTION_TOL); the record's row of the
+    roofline table, the correction overlaid, is printed."""
+    from repro_torch.analysis import report
+
     t1 = time.perf_counter()
-    rec = finish_dryrun(dry, DRYRUN_TIMEOUT_S)
     cell = DRYRUN_CELL
-    if rec is None:
-        log(f"dry-run {DRYRUN_CELL} past {DRYRUN_TIMEOUT_S}s: {DRYRUN_FALLBACK} instead")
+    dry, cor = pending
+    rec = finish_dryrun(dry, DRYRUN_TIMEOUT_S)
+    t_dry = time.perf_counter()
+    corr = finish_correction(cor, CORRECTION_TIMEOUT_S if rec is not None else 0)
+    if rec is None or corr is None:
+        late = "dry-run" if rec is None else "correction"
+        log(f"{late} of {DRYRUN_CELL} past its time: {DRYRUN_FALLBACK} instead")
         cell = DRYRUN_FALLBACK
-        rec = finish_dryrun(start_dryrun(DRYRUN_FALLBACK), DRYRUN_TIMEOUT_S)
-        if rec is None:
-            raise AssertionError(f"dry-run {DRYRUN_FALLBACK} past {DRYRUN_TIMEOUT_S}s")
+        dry, cor = start_dryrun(cell), start_correction(cell)
+        rec, corr = finish_dryrun(dry, DRYRUN_TIMEOUT_S), finish_correction(cor, CORRECTION_TIMEOUT_S)
+        if rec is None or corr is None:
+            raise AssertionError(f"dry-run or correction of {DRYRUN_FALLBACK} past its time")
+        t_dry = time.perf_counter()
+    t_corr = time.perf_counter()
     out["dryrun"] = {"cell": list(cell), "wall_s": rec["wall_s"], "trace_s": rec["lower_compile_s"],
                      "n_devices": rec["n_devices"], "n_params": rec["n_params"],
                      "memory_per_device": rec["memory"], "cost_per_device": rec["cost"],
@@ -2963,9 +3062,151 @@ def run_parallel_path(torch, lib, device):
     log(f"dry-run {cell}: {rec['memory']['argument_size_in_bytes'] / 1e9:.2f} GB of arguments, "
         f"{rec['memory']['temp_size_in_bytes'] / 1e9:.2f} GB of temp (fits 80 GB: {rec['fits']}) "
         f"and {rec['cost']['flops']:.3e} FLOPs a device, {rec['wall_s']:.1f}s from its start, "
-        f"waited {time.perf_counter() - t1:.1f}s")
-    out["seconds"] = time.perf_counter() - t0
+        f"waited {t_dry - t1:.1f}s")
+    pairs = {"flops": (corr["flops"], rec["cost"]["flops"]),
+             "bytes_accessed": (corr["bytes_accessed"], rec["cost"]["bytes_accessed"]),
+             "collective_bytes": (corr["collective_bytes"], rec["collectives"]["total_bytes"])}
+    diffs = {k: got - want for k, (got, want) in pairs.items()}
+    if any(abs(d) > CORRECTION_TOL + 0.5 for d in diffs.values()):  # counts: integers
+        raise AssertionError(f"correction of {cell} differs from its full-depth record: {diffs}")
+    cid = "|".join(cell[:3])
+    row = report.roofline_table({cid: rec}, cell[2], corrections={cid: corr}).splitlines()[2]
+    out["correction"] = {"cell": list(cell), "wall_s": corr["wall_s"], "probe_s": corr["probe_s"],
+                         "full_counts": corr["full_counts"],
+                         "predicted": {k: got for k, (got, _) in pairs.items()},
+                         "minus_full_depth": diffs, "tolerance": CORRECTION_TOL,
+                         "roofline_row": row, "waited_s": t_corr - t_dry}
+    log(f"correction of {cell} in {corr['wall_s']:.1f}s (probes {corr['probe_s']}) equals the "
+        f"full-depth record; waited {t_corr - t_dry:.1f}s more\n{row}")
+    out["seconds"] = time.perf_counter() - out.pop("t0")
     log(f"parallel phase: {out['seconds']:.1f}s")
+    return t_dry, t_corr
+
+
+# ----------------------------------------------------------------------------
+# the examples, the port's user entry points, on the card
+# ----------------------------------------------------------------------------
+
+# runs an example as ``python examples/<name>_torch.py ARGS`` would, then
+# prints the process's kernel launch counts (they start at 0 in a new process)
+# and its seconds
+_EXAMPLE = """
+import time
+t0 = time.perf_counter()
+import json, runpy, sys
+from repro_torch.kernels import _lib
+sys.argv = sys.argv[1:]
+try:
+    runpy.run_path(sys.argv[0], run_name="__main__")
+finally:
+    print("LAUNCHES=" + json.dumps({"launches": {n: _lib.counter(n).launches for n in _lib.SOURCES},
+                                    "seconds": time.perf_counter() - t0}), flush=True)
+"""
+
+
+def _start_example(name, *args):
+    path = str(ROOT / "examples" / f"{name}_torch.py")
+    return _spawn("example", (name,) + args, [sys.executable, "-c", _EXAMPLE, path, *args],
+                  env={"OMP_NUM_THREADS": "1"})
+
+
+def start_examples():
+    """Start the four examples on the card, each in a subprocess at its
+    defaults (the card; 12 requests; the tiny trainer at 8 x 128): the
+    quickstart, the durable store, the serve engine, the trainer for
+    EXAMPLE_TRAIN steps, and beside it the trainer in a second checkpoint
+    directory crashing at EXAMPLE_FAIL_AT (``finish_examples`` resumes it)."""
+    import tempfile
+
+    ckpt = tempfile.TemporaryDirectory()
+    runs = {name: _start_example(name) for name in ("quickstart", "durable_store", "serve_engine")}
+    runs["train_lm"] = _start_example("train_lm", *EXAMPLE_TRAIN, "--ckpt", f"{ckpt.name}/full")
+    runs["train_crash"] = _start_example("train_lm", *EXAMPLE_TRAIN, "--ckpt", f"{ckpt.name}/crash",
+                                         "--fail-at", str(EXAMPLE_FAIL_AT))
+    return runs, ckpt, time.perf_counter()
+
+
+def _example_out(run):
+    done = _finish(run, EXAMPLE_TIMEOUT_S)
+    if done is None:
+        raise AssertionError(f"example {run[1]} past {EXAMPLE_TIMEOUT_S}s")
+    tagged = [x for x in done[1].splitlines() if x.startswith("LAUNCHES=")]
+    lines = [x for x in done[1].splitlines() if not x.startswith("LAUNCHES=")]
+    tail = json.loads(tagged[-1][len("LAUNCHES="):])
+    return "\n".join(lines), lines, tail["launches"], tail["seconds"]
+
+
+def _json_after(text, first_line):
+    body = text[text.index(first_line) + len(first_line):]
+    return json.loads(body[body.index("{"):body.rindex("}") + 1])
+
+
+def _leaves(tree, path=""):
+    if isinstance(tree, dict):
+        return {k: v for key, sub in tree.items() for k, v in _leaves(sub, f"{path}/{key}").items()}
+    return {path: tree}
+
+
+def finish_examples(started):
+    """Wait for the examples and check them: the quickstart's and the durable
+    store's lines (EXAMPLE_LINES), the serve engine's 12 requests and index
+    counters (EXAMPLE_SERVE), the trainer's crash at EXAMPLE_FAIL_AT, its
+    resume from step 5 and the resumed run's final loss and history equal to
+    the uninterrupted run's.  The kernel launches of every run are summed:
+    K1, K3, B6 and B7 must each have run."""
+    import math
+
+    runs, ckpt, t0 = started
+    out, launches = {}, collections.Counter()
+    try:
+        for name in ("train_crash", "quickstart", "durable_store", "serve_engine", "train_lm"):
+            text, lines, counts, seconds = _example_out(runs[name])
+            launches.update(counts)
+            out[name] = {"seconds": seconds, "launches": counts}
+            if name == "train_crash":
+                want = f"[crash] injected failure at step {EXAMPLE_FAIL_AT}"
+                if not any(x.startswith(want) for x in lines):
+                    raise AssertionError(f"example train_lm --fail-at: {text[-2000:]}")
+                runs["train_resume"] = _start_example("train_lm", *EXAMPLE_TRAIN, "--ckpt",
+                                                      f"{ckpt.name}/crash")
+            elif name in EXAMPLE_LINES:
+                missing = [x for x in EXAMPLE_LINES[name] if x not in lines]
+                if missing:
+                    raise AssertionError(f"example {name}: no line {missing}:\n{text[-3000:]}")
+                out[name]["lines"] = EXAMPLE_LINES[name]
+                if name == "quickstart":
+                    loss = float(next(x for x in lines if "initial loss" in x).split(":")[1].split()[0])
+                    if not math.isfinite(loss):
+                        raise AssertionError(f"example quickstart: loss {loss}")
+                    out[name]["initial_loss"] = loss
+            elif name == "serve_engine":
+                stats = _leaves(_json_after(text, "served 12 requests"))
+                got = {k: stats.get(k) for k in EXAMPLE_SERVE}
+                if got != EXAMPLE_SERVE:
+                    raise AssertionError(f"example serve_engine: {got} != {EXAMPLE_SERVE}")
+                out[name]["counters"] = got
+            else:
+                out[name]["result"] = _json_after(text, "")
+        text, lines, counts, seconds = _example_out(runs["train_resume"])
+        launches.update(counts)
+        resumed = _json_after(text, "[resume] from durable checkpoint @ step 5")
+        full = out["train_lm"]["result"]
+        same = (resumed["resumed_from"] == 5 and resumed["final_step"] == full["final_step"]
+                and resumed["final_loss"] == full["final_loss"]
+                and resumed["history"][-1]["loss"] == full["history"][-1]["loss"])
+        if not same or not math.isfinite(full["final_loss"]):
+            raise AssertionError(f"example train_lm: resumed {resumed} against {full}")
+        out["train_resume"] = {"seconds": seconds, "launches": counts, "resumed_from": 5,
+                               "final_loss": resumed["final_loss"],
+                               "equal_to_uninterrupted": True}
+    finally:
+        ckpt.cleanup()
+    out["launches"] = dict(launches)
+    for kernel in EXAMPLE_KERNELS:
+        if launches[kernel] <= 0:
+            raise AssertionError(f"examples: {kernel} never launched")
+    out["seconds"] = time.perf_counter() - t0
+    log(f"examples phase: {out['seconds']:.1f}s, launches {dict(launches)}")
     return out
 
 
@@ -3693,8 +3934,22 @@ def main() -> int:
     # the parallel layer: qwen2 trained, restored and served on a 1-rank NCCL
     # mesh against the mesh-free runs, the compressed reduce, the pipeline,
     # the grouped MoE; the dry-run of a 512-rank cell
-    parallel_summary = run_parallel_path(torch, lib, torch.device("cuda"))
+    # the examples on the card, each in a subprocess, beside the parallel
+    # phase and its dry-run and correction, which trace on the host's CPU
+    examples = start_examples()
+    parallel_summary, pending = run_parallel_path(torch, lib, torch.device("cuda"))
+    t_card = time.perf_counter()
+    t_dry, t_corr = finish_dryruns(parallel_summary, pending)
     print(json.dumps({"parallel_path": parallel_summary, "card": smi}), flush=True)
+    examples_summary = finish_examples(examples)
+    t_end = time.perf_counter()
+    # what the correction and the examples add to the script: the wait past
+    # the dry-run's end (where the parallel phase ended before them)
+    examples_summary["added_wall_s"] = {
+        "correction": t_corr - t_dry, "examples": max(0.0, t_end - t_corr),
+        "total": t_end - t_dry, "dryrun_wait": t_dry - t_card}
+    log(f"correction and examples added {t_end - t_dry:.1f}s")
+    print(json.dumps({"examples_path": examples_summary, "card": smi}), flush=True)
 
     # 7. every kernel against its plain version at main-path shapes
     rows = kernel_report(
@@ -3703,7 +3958,8 @@ def main() -> int:
         libs, summary, recorded, serve_summary, serve_recorded, per_call, train_summary,
         train_recorded, {"occ": occ_summary, "forest": forest_summary, "index": index_summary,
                          "durable": durable_summary, "obs": obs_summary, "lm": lm_summary,
-                         "family": family_summary, "parallel": parallel_summary},
+                         "family": family_summary, "parallel": parallel_summary,
+                         "examples": examples_summary},
         forest_recorded, lm_summary, lm_recorded, family_summary, family_recorded,
     )
     print(json.dumps({"kernels": rows}), flush=True)

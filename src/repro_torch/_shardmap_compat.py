@@ -36,9 +36,7 @@ an import cycle.
 """
 from __future__ import annotations
 
-import contextvars
 import math
-from contextlib import contextmanager
 from typing import Any, Mapping, NamedTuple
 
 import torch
@@ -146,38 +144,6 @@ def _leaf(x) -> bool:
     return isinstance(x, PartitionSpec)
 
 
-# The local regions' FLOP counters, when a caller counts them apart (the
-# dry-run: a ``FlopCounterMode`` sees a ``DTensor`` op at its global shape
-# and a local region's ops at one rank's).
-_REGION_FLOPS: contextvars.ContextVar = contextvars.ContextVar("region_flops", default=None)
-
-
-def _region(fn, *args, **kwargs):
-    """``fn`` on local tensors: a local region (its FLOPs collected when a
-    ``count_region_flops`` context is open)."""
-    found = _REGION_FLOPS.get()
-    if found is None:
-        return fn(*args, **kwargs)
-    from torch.utils.flop_counter import FlopCounterMode
-
-    with FlopCounterMode(display=False) as counter:
-        out = fn(*args, **kwargs)
-    found.append(counter.get_total_flops())
-    return out
-
-
-@contextmanager
-def count_region_flops():
-    """Collect the FLOPs of every ``shard_map_compat`` body run inside the
-    context (one rank's), as a list the context yields."""
-    found: list = []
-    token = _REGION_FLOPS.set(found)
-    try:
-        yield found
-    finally:
-        _REGION_FLOPS.reset(token)
-
-
 def shard_map_compat(fn, *, mesh, in_specs, out_specs, manual, partial=()):
     """``fn`` over each rank's local shards (see the module docstring).
     ``in_specs``: one spec tree (or a spec standing for a whole subtree)
@@ -209,7 +175,7 @@ def shard_map_compat(fn, *, mesh, in_specs, out_specs, manual, partial=()):
             grad_pl = tuple(Partial() if isinstance(p, Replicate) and name in manual else p
                             for p, name in zip(pl, names))
             local.append(x.redistribute(mesh, pl).to_local(grad_placements=grad_pl))
-        out = _region(fn, *pytree.tree_unflatten(local, tree))
+        out = fn(*pytree.tree_unflatten(local, tree))
         oflat, otree = pytree.tree_flatten(out)
         ospecs = pytree._broadcast_to_and_flatten(out_specs, otree, is_leaf=_leaf)
         wrapped = [
@@ -265,7 +231,7 @@ def local_heads(fn, inputs, *args, head_dims=None, **kwargs):
         return x.redistribute(mesh, pl).to_local(grad_placements=grad)
 
     local = [to_local(x, tuple(k[i] for k in keep)) for i, x in enumerate(inputs)]
-    out = _region(fn, *local, *args, **kwargs)
+    out = fn(*local, *args, **kwargs)
     return DTensor.from_local(out, mesh, tuple(out_pl), run_check=False)
 
 

@@ -14,18 +14,31 @@ dry-run: ``torch.utils.flop_counter.FlopCounterMode`` for the FLOPs, and
 collective's operand bytes) for the collectives ``DTensor`` issues; they
 are counts, not times.  ``collective_bytes`` takes the place of JAX's
 ``collective_bytes_from_hlo``, with its keys.
+
+A trace counts only the step's own ops.  ``DTensor`` derives the output
+shape of each op it has not met before by running the op once more on fake
+global-shape tensors, which every dispatch mode sees like the step's ops,
+and caches what it derived (in C++ and in Python) for the rest of the
+process: counted, those runs made a process's first trace of a cell read
+more FLOPs than its second.  ``ColdShardingPropagation`` empties
+the caches and marks the propagation while it runs; ``StepFlops`` and
+``PeakMemory`` leave its ops out.  So a cell's counts are the same in a
+fresh process, after other traces in the same process and under any
+``PYTHONHASHSEED``; they do depend on the torch version, whose ``DTensor``
+strategies choose other collectives.
 """
 from __future__ import annotations
 
-from typing import Dict
-
+import functools
 import weakref
+from typing import Dict
 
 import torch
 from torch.distributed.tensor import DTensor
 from torch.distributed.tensor.debug import CommDebugMode
 from torch.utils import _pytree as pytree
 from torch.utils._python_dispatch import TorchDispatchMode
+from torch.utils.flop_counter import FlopCounterMode
 
 # --- NVIDIA H100 80GB HBM3, SXM, 700 W (NVIDIA's data sheet, dense rates) ---
 PEAK_FLOPS = 989e12  # bf16 on the tensor cores
@@ -89,47 +102,92 @@ class CollectiveRecorder(CommDebugMode):
         return out
 
 
+def _clear_sharding_caches(prop) -> None:
+    torch._C._clear_DTensor_sharding_propagator_cache()
+    prop.propagate_op_sharding.cache_clear()
+    type(prop)._propagate_tensor_meta_cached.cache_clear()
+
+
+class ColdShardingPropagation:
+    """While open, ``DTensor``'s sharding propagation starts from empty
+    caches, and ``running`` counts the propagations under way (see the
+    module docstring); the counters given this object skip their ops.  The
+    caches are emptied again on exit."""
+
+    def __init__(self):
+        self.running = 0
+        self._prop = DTensor._op_dispatcher.sharding_propagator
+        self._cached = None
+
+    def _marked(self, fn):
+        def run(*args, **kwargs):
+            self.running += 1
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                self.running -= 1
+        return run
+
+    def __enter__(self):
+        prop, cls = self._prop, type(self._prop)
+        self._cached = prop.propagate_op_sharding
+        _clear_sharding_caches(prop)
+        # instance attributes, this propagator only; the Python cache wraps
+        # the marked propagation for the duration
+        prop.propagate_op_sharding_non_cached = self._marked(
+            cls.propagate_op_sharding_non_cached.__get__(prop))
+        prop._propagate_tensor_meta_non_cached = self._marked(
+            cls._propagate_tensor_meta_non_cached.__get__(prop))
+        prop.propagate_op_sharding = functools.lru_cache(None)(prop.propagate_op_sharding_non_cached)
+        return self
+
+    def __exit__(self, *exc):
+        prop = self._prop
+        del prop.propagate_op_sharding_non_cached, prop._propagate_tensor_meta_non_cached
+        prop.propagate_op_sharding = self._cached
+        _clear_sharding_caches(prop)
+        return False
+
+
+class StepFlops(FlopCounterMode):
+    """``FlopCounterMode`` that leaves out the ops ``DTensor``'s sharding
+    propagation runs while ``propagation`` (a ``ColdShardingPropagation``)
+    is open."""
+
+    def __init__(self, propagation: ColdShardingPropagation, **kwargs):
+        super().__init__(**kwargs)
+        self.propagation = propagation
+
+    def _count_flops(self, func_packet, out, args, kwargs):
+        if self.propagation.running:
+            return out
+        return super()._count_flops(func_packet, out, args, kwargs)
+
+
 class PeakMemory(TorchDispatchMode):
     """The peak bytes of the storages that a step's ops make and hold at
     once, one rank's (``DTensor`` runs its ops on the local shards, which
     is what a mode sees); a view counts the storage it shares, and a
     storage is freed with the tensor that brought it.  What ``DTensor``'s
-    sharding propagation makes is left out: it runs each new op once on
-    global-shape meta placeholders, which hold no memory (``MemTracker``
-    counts them on the card's torch 2.11, where a 436 GB placeholder of
-    deepseek's stacked experts read as a decode step's temp)."""
+    sharding propagation makes while ``propagation`` is open is left out:
+    it runs each new op once on global-shape fake tensors, which hold no
+    memory (``MemTracker`` counts them on the card's torch 2.11, where a
+    436 GB placeholder of deepseek's stacked experts read as a decode
+    step's temp)."""
 
-    def __init__(self):
+    def __init__(self, propagation: ColdShardingPropagation):
         super().__init__()
+        self.propagation = propagation
         self.live: Dict[int, int] = {}
         self.now = 0
         self.peak = 0
-        self._propagating = 0
-
-    def __enter__(self):
-        prop = DTensor._op_dispatcher.sharding_propagator
-        inner = prop.propagate_op_sharding_non_cached
-
-        def propagate(*args, **kwargs):
-            self._propagating += 1
-            try:
-                return inner(*args, **kwargs)
-            finally:
-                self._propagating -= 1
-
-        prop.propagate_op_sharding_non_cached = propagate  # this instance only
-        return super().__enter__()
-
-    def __exit__(self, *exc):
-        del DTensor._op_dispatcher.sharding_propagator.propagate_op_sharding_non_cached
-        return super().__exit__(*exc)
 
     def _free(self, key):
         self.now -= self.live.pop(key, 0)
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         out = func(*args, **(kwargs or {}))
-        if self._propagating:
+        if self.propagation.running:
             return out
         for o in pytree.tree_leaves(out):
             if not isinstance(o, torch.Tensor):

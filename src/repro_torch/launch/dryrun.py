@@ -12,8 +12,11 @@ For each cell ``run_cell``
      under the arch's rule set, and the inputs by ``input_specs``
      (``parallel/sharding.py`` places them: no allocation);
   3. runs the train step (forward, backward, clip and the AdamW update),
-     the prefill step or one decode step under ``FlopCounterMode`` and
-     ``CollectiveRecorder`` (a ``CommDebugMode``);
+     the prefill step or one decode step under ``StepFlops`` (a
+     ``FlopCounterMode``) and ``CollectiveRecorder`` (a ``CommDebugMode``),
+     from emptied caches and counting only the step's own ops
+     (``analysis.roofline.ColdShardingPropagation``; the model's cached
+     tables are cleared too), so a cell counts the same in any process;
   4. records ``status``, ``n_params``, one device's ``memory`` (argument
      and output bytes: the local shards of the step's inputs and outputs;
      temp bytes: the peak of what the step allocates, less its outputs, as
@@ -24,11 +27,12 @@ For each cell ``run_cell``
      seconds), and appends the record to the results JSON (cells already
      there are skipped unless ``--force``).
 
-One device's FLOPs: ``FlopCounterMode`` sees a ``DTensor`` op at its
-global shape, and the ops of a local region (the attention kernels' local
-shards, the MoE dispatch) at one rank's; so ``cost.flops`` is the
-``DTensor`` ops' count divided by the devices plus the local regions'
-count, both kept apart in the record.  The temp bytes are those of the
+One device's FLOPs: ``CollectiveRecorder``, a ``CommDebugMode``, hands
+every ``DTensor`` op to ``DTensor`` before the modes below it see it, so
+``StepFlops`` counts the local ops one rank runs (each shard's share of a
+``DTensor`` op, and the local regions: the attention kernels' local
+shards, the MoE dispatch, the recurrent cells), forward and backward, and
+replicated work once a rank.  The temp bytes are those of the
 step as the dry-run host runs it: its local regions take the plain
 versions of the kernels (the attention's whole score matrix; B6 on the
 card keeps none), so they bound the card's from above.  They also hold
@@ -92,18 +96,18 @@ def _local_bytes(tree) -> int:
 
 
 def run_cell(arch: str, shape_name: str, mesh_kind: str, overrides=None) -> dict:
-    from torch.utils.flop_counter import FlopCounterMode
-
-    from repro_torch._shardmap_compat import count_region_flops, place
+    from repro_torch._shardmap_compat import place
     from repro_torch.analysis.roofline import (
         HBM_BYTES,
         CollectiveRecorder,
+        ColdShardingPropagation,
         PeakMemory,
+        StepFlops,
         collective_bytes,
     )
     from repro_torch.launch.inputs import input_specs
     from repro_torch.launch.mesh import make_production_mesh
-    from repro_torch.models import backbone, count_params
+    from repro_torch.models import backbone, count_params, layers
     from repro_torch.models.params import map_specs
     from repro_torch.optim.adamw import adamw_init
     from repro_torch.parallel.sharding import batch_shardings, cache_shardings
@@ -148,8 +152,13 @@ def run_cell(arch: str, shape_name: str, mesh_kind: str, overrides=None) -> dict
     else:
         batch = place(specs, batch_shardings(cfg, specs, mesh))
         args = (params, adamw_init(params), batch) if shape.kind == "train" else (params, batch)
-    with PeakMemory() as mem, count_region_flops() as regions, \
-            FlopCounterMode(display=False) as flops, CollectiveRecorder() as comm:
+    # every trace starts as in a fresh process: the model's cached tables
+    # and DTensor's propagation caches empty (analysis/roofline.py)
+    layers.clear_tables()
+    # CollectiveRecorder innermost: it hands each DTensor op to DTensor, so
+    # the counters below it see the local ops one rank runs
+    with ColdShardingPropagation() as prop, PeakMemory(prop) as mem, \
+            StepFlops(prop, display=False) as flops, CollectiveRecorder() as comm:
         if shape.kind == "train":
             outs = tuple(make_train_step(cfg, mesh, donate=True)(*args, 0))
         elif shape.kind == "prefill":
@@ -162,12 +171,8 @@ def run_cell(arch: str, shape_name: str, mesh_kind: str, overrides=None) -> dict
     rec["memory"] = {"argument_size_in_bytes": arg_bytes, "output_size_in_bytes": out_bytes,
                      "temp_size_in_bytes": temp}
     rec["fits"] = arg_bytes + temp <= HBM_BYTES
-    local = float(sum(regions))
-    dtensor = float(flops.get_total_flops()) - local
     rec["cost"] = {
-        "flops": dtensor / n_devices + local,
-        "dtensor_flops_global": dtensor,
-        "local_region_flops": local,
+        "flops": float(flops.get_total_flops()),
         "bytes_accessed": float(arg_bytes + out_bytes),
     }
     rec["collectives"] = collective_bytes(comm.records)

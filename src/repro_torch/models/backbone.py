@@ -46,6 +46,7 @@ from typing import Any, Dict
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor
 from torch.utils.checkpoint import (
     CheckpointPolicy,
     checkpoint,
@@ -415,6 +416,20 @@ def _shared_input(sp, x, x0, cfg):
     return torch.cat([x, x0], dim=-1) @ sp["in_proj"].to(cdt(cfg))
 
 
+def _placed_like(y, x):
+    """The shared block's output in the residual stream's placements.  Under
+    a mesh the block's output projection leaves partial sums over
+    ``model``; added as they are, they would keep the residual stream
+    partial for the rest of the stack, and every later mamba layer would
+    reduce it again (its norm's f32 input and its local region's input)
+    where the layers before the first shared block reduce nothing.  Reduced
+    here once an invocation, every mamba layer runs alike, so the dry-run's
+    counts are linear in the layer and invocation counts."""
+    if isinstance(y, DTensor) and isinstance(x, DTensor) and y.placements != x.placements:
+        return y.redistribute(x.device_mesh, x.placements)
+    return y
+
+
 def _hybrid_forward(params, tokens, cfg, extra=None):
     x0 = embed_apply(params["embed"], tokens, cfg)
     x = x0
@@ -425,7 +440,8 @@ def _hybrid_forward(params, tokens, cfg, extra=None):
             x = _scan_stack(_slice_stack(params["mamba"], li, count), x, cfg, body)
         if shared:
             sp = params["shared"]
-            x = x + block_apply(sp["block"], _shared_input(sp, x, x0, cfg), cfg, moe=False)
+            y = block_apply(sp["block"], _shared_input(sp, x, x0, cfg), cfg, moe=False)
+            x = x + _placed_like(y, x)
     x = norm_apply(params["ln_f"], x, cfg)
     return unembed_apply(params["embed"], x, cfg)
 
@@ -453,7 +469,7 @@ def _hybrid_decode(params, cache, tokens, pos, cfg):
             sp = params["shared"]
             y, _ = block_decode(sp["block"], _shared_input(sp, x, x0, cfg), cfg,
                                 _cache_layer(cache["shared"], seg), pos, moe=False)
-            x = x + y
+            x = x + _placed_like(y, x)
     x = norm_apply(params["ln_f"], x, cfg)
     return unembed_apply(params["embed"], x, cfg)[:, 0], cache
 

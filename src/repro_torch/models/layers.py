@@ -173,3 +173,9 @@ def position_table(n: int, d: int, device: torch.device) -> torch.Tensor:
     """``sinusoidal_positions(n, d)`` on ``device``, made once: whisper's
     decode reads one row of the 8,192-row table a step."""
     return torch.from_numpy(sinusoidal_positions(n, d)).to(device)
+
+
+def clear_tables() -> None:
+    """Forget the tables made once (``_rope_table``, ``position_table``)."""
+    _rope_table.cache_clear()
+    position_table.cache_clear()

@@ -1,5 +1,6 @@
-"""Boundary of the port: ``src/repro_torch``, ``chip_smoke.py`` and the
-port's chip tools under ``tools/`` import neither JAX nor the JAX package; the tree, the forest, their
+"""Boundary of the port: ``src/repro_torch``, ``chip_smoke.py``, the
+port's chip tools under ``tools/`` and its examples (``examples/*_torch.py``)
+import neither JAX nor the JAX package; the tree, the forest, their
 durable variants and recovery refuse to drop to the CPU on their own; and every kernel wrapper sends a
 CUDA tensor to its kernel, never to the plain version."""
 import ast
@@ -27,7 +28,7 @@ from repro_torch.kernels.tree_descend import kernel as td_kernel, ops as td_ops,
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT_FILES = (sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
-              + sorted((ROOT / "tools").glob("*.py")))
+              + sorted((ROOT / "tools").glob("*.py")) + sorted((ROOT / "examples").glob("*_torch.py")))
 
 
 def _imported_roots(path: Path):
@@ -47,7 +48,8 @@ def test_port_files_found():
             "adamw.py", "manager.py", "pipeline.py", "tree_kernel_ab.py", "durable.py",
             "faults.py", "xlstm.py", "ssm.py", "_shardmap_compat.py", "mesh.py", "ctx.py",
             "sharding.py", "compress.py", "inputs.py", "dryrun.py", "roofline.py",
-            "optimized.py"} <= names
+            "optimized.py", "report.py", "scan_correction.py", "quickstart_torch.py",
+            "durable_store_torch.py", "serve_engine_torch.py", "train_lm_torch.py"} <= names
 
 
 @pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(ROOT)))
