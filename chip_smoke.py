@@ -25,7 +25,13 @@ csrc`` (one ``nvcc`` per source, in parallel, into ``build/``), then:
    ``scan_round`` at cap 10,000 over an interval of more than 10,000 live
    keys (the frontier grows to fit, and stays grown, so it runs after the
    timed rounds) must equal ``DictOracle.range``: keys, values, count and
-   truncated;
+   truncated; then the core's bare-state forms on the tree's state:
+   ``frontier_expand`` of 1,024 intervals of span U[1,64] at cap 8 on the
+   card (K2 once a level) equal to the same call on a CPU copy, all five
+   outputs, and ``descend`` + ``probe`` of the same lanes' keys equal to
+   K1's answers; and ``data.workloads.prefill_tree`` of a fresh
+   ``ABTree(PAPER)`` over a key range of 20,000 (10,000 keys in ten
+   1,024-lane rounds), each round checked against ``DictOracle``;
    then occ mode: the tree's final state and a copy of its oracle in
    ``ABTree(mode="occ")``, one warm-up and three measured Zipf(1.0) rounds
    and three uniform rounds of the same width and mix (each a run of
@@ -68,7 +74,8 @@ csrc`` (one ``nvcc`` per source, in parallel, into ``build/``), then:
    ``mid_manifest`` and recovered on the card, whose forensics sidecar
    replays to the recovered contents, one of its prefix states; the tree
    path's traced rounds written as a Chrome trace, valid, with report
-   totals equal to the traced breakdown, and two traced rounds of the
+   totals equal to the traced breakdown and a ``Tracer.counter`` track
+   of each traced round's retry passes, and two traced rounds of the
    static forest (valid, per-shard tracks, ``report --json`` 0); and the
    ``torch.profiler`` op audit of the search and scan phases on the tree
    path's tree (no sort in the scan phases; K1 and K3 once a search, K2
@@ -99,9 +106,9 @@ csrc`` (one ``nvcc`` per source, in parallel, into ``build/``), then:
    counts zeroed before and read after, and the card's peak memory printed
    for each part: (a) ``ServeEngine`` on granite-moe-3b-a800m at its
    published width and depth (32 layers, 40 experts top-8, bf16 compute
-   over fp32 weights from the seed), max_batch 8, s_max 512, 32 pages; 3
-   requests of 264-token prompts, 2 of them one hot prompt (its first
-   256-token block is hit), 8 new tokens each, serial; every request gets
+   over fp32 weights from the seed), max_batch 8, s_max 512, 32 pages; 2
+   requests of one hot 264-token prompt (the second hits its first
+   256-token block), 8 new tokens each, serial; every request gets
    its tokens, the indexes pass ``check_invariants`` and equal their
    ``DictOracle``, B7 runs once a layer a model step, one decode step run
    twice from the same cache and tokens gives bit-equal logits (the MoE
@@ -155,7 +162,9 @@ csrc`` (one ``nvcc`` per source, in parallel, into ``build/``), then:
    each; ``compressed_grad_reduce`` of qwen2's gradients over a (pod=1,
    data=1, model=1) mesh equal to ``dequantize_int8(_ef_quantize(...))`` on
    the card and on the CPU, bit for bit; a one-stage ``pipeline_apply``
-   equal to its stage; granite's MoE layer (``moe_groups=32``, 2 x 1,024
+   equal to its stage, and its gradients of ``sum(out * g)`` for the
+   weights and the microbatches within 1e-5 of the stage's own; granite's
+   MoE layer (``moe_groups=32``, 2 x 1,024
    tokens) under the mesh equal to the mesh-free path; the process group
    destroyed; beside it, in subprocesses started first, the dry-run CLI on
    deepseek-v3-671b ``decode_32k`` over the fake 512-rank multi-pod mesh
@@ -200,7 +209,9 @@ csrc`` (one ``nvcc`` per source, in parallel, into ``build/``), then:
    whisper's encoder over 1,500 frames without causality, its
    cross-attention decode over them), rows of their own in the ``kernels``
    line;
-9. prints ``{"ok": true, "device": {...}}`` as its last line.
+9. prints the seconds of the parity checks (the bare-state forms,
+   ``prefill_tree``, the counter track, the pipeline's backward) and
+   ``{"ok": true, "device": {...}}`` as its last line.
 
 Any failed check raises, so the script exits non-zero.  Without a CUDA card,
 or without the repository's ``src/repro_torch`` beside it, it exits 2 and
@@ -302,12 +313,13 @@ DECODE_ULPS = 2
 # f32 outside them
 OPS_PER_S = {"torch.bfloat16": 989e12, "torch.float32": 67e12}
 # LM-family and training-stack phase: granite-moe-3b-a800m at its published
-# width and depth, served (LM_HOT: 2 of 3 requests one hot prompt, whose
-# first 256-token block is hit; cut from 4 requests for the script's time)
+# width and depth, served (LM_HOT: 2 requests of one hot prompt, whose
+# first 256-token block the second hits; cut from 4 requests, then from 3
+# (a cold one), for the script's time on slow hosts)
 # and trained by the launcher's Trainer
 LM_ARCH = "granite-moe-3b-a800m"
 LM_SERVE_ENGINE = dict(max_batch=8, s_max=512, n_pages=32)
-LM_PROMPT, LM_MAX_NEW, LM_HOT = 264, 8, (True, True, False)
+LM_PROMPT, LM_MAX_NEW, LM_HOT = 264, 8, (True, True)
 LM_TRAIN_BATCH, LM_TRAIN_SEQ = 2, 1024
 LM_WARMUP_STEPS, LM_TIMED_STEPS = 2, 5
 LM_FALL_STEPS, LM_FALL_LR = 6, 1e-3  # constant_lr on one fixed batch
@@ -373,6 +385,16 @@ EXAMPLE_TRAIN = ["--steps", "10"]
 EXAMPLE_FAIL_AT = 6  # checkpoints every 5 steps: the resume starts at step 5
 EXAMPLE_KERNELS = ("descend_probe", "elim_combine", "flash_attention", "decode_attention")
 EXAMPLE_TIMEOUT_S = 240
+# the bare-state forms on the tree path's tree after its timed rounds:
+# frontier_expand of FRONTIER_CHECK[0] intervals [lo, lo + U[1, FRONTIER_CHECK[1]])
+# at cap FRONTIER_CHECK[2] on the card and on a CPU copy, and descend + probe
+# of the same lanes' keys against K1
+FRONTIER_CHECK = (1_024, 64, 8)
+# prefill_tree of an ABTree(PAPER): half of this key range in 1,024-lane rounds
+PREFILL_TREE_RANGE = 20_000
+# the one-stage pipeline's gradients against the stage's own: f32 products
+# summed a microbatch at a time against one batched product
+PIPE_GRAD_TOL = 1e-5
 
 
 def log(msg: str) -> None:
@@ -500,6 +522,7 @@ def run_main_path(torch, core, lib, zipf_keys):
                     recorded[cname], c.calls = c.calls, None
             after = (m.value("retry_passes"), m.value("split_waves"), m.value("underfull_waves"))
             work.append([x - y for x, y in zip(after, before)])
+            tree.tracer.counter("retry_passes", work[-1][0])  # a counter track when traced
             want = oracle.apply_mixed_round(ops, keys, vals, cap=128)
             check_round(out, want, ops, core.OP_RANGE, f"{name} round {r}")
         return ms, np.asarray(work, np.float64)
@@ -507,32 +530,34 @@ def run_main_path(torch, core, lib, zipf_keys):
     def traced_breakdown(name):
         """Per-round span totals over TRACED_ROUNDS rounds with the phase
         tracer on (it fences every span, so these rounds are not timed),
-        and the tracer."""
+        the tracer, and each round's retry passes (its counter track)."""
         tracer = tree.tracer = Tracer()
-        drive(TRACED_ROUNDS, name)
+        _, work = drive(TRACED_ROUNDS, name)
         phase = {}
         for ev in tracer.events:
             if ev["ph"] == "X":
                 phase[ev["name"]] = phase.get(ev["name"], 0.0) + ev["dur"] / 1e3 / TRACED_ROUNDS
         tree.tracer = NULL_TRACER
-        return phase, tracer
+        return phase, tracer, work[:, 0].tolist()
 
     drive(WARMUP, "warm-up")
     round_ms, work = drive(ROUNDS, "measured", record_last=True)
-    traced_on, tracer = traced_breakdown("traced")
+    traced_on, tracer, traced_retries = traced_breakdown("traced")
     history = {"recorder": tree.recorder, **issued,
                "eliminated": tree.stats()["eliminated"] - eliminated0, "state": oracle.items(),
                "tracer": tracer, "traced_ms_per_round": traced_on,
-               "scan_frontier": tree._scan_frontier}
+               "traced_retry_passes": traced_retries, "scan_frontier": tree._scan_frontier}
     # the flight recorder is on by default (as in the JAX engine); the same
     # traffic with it off shows what it costs per round.
     tree.recorder = Recorder(enabled=False)
     round_ms_off, _ = drive(RECORDER_OFF_ROUNDS, "recorder-off")
-    traced_off, _ = traced_breakdown("traced recorder-off")
+    traced_off, _, _ = traced_breakdown("traced recorder-off")
     launches = {n: c.launches for n, c in counters.items()}
     large_scan, recorded["large_cap_scan"] = large_cap_scan(torch, tree, oracle, counters)
     log(f"scan_round cap {LARGE_SCAN_CAP}: {large_scan['wall_ms']:.1f} ms, "
         f"{large_scan['count']} keys, launches {large_scan['launches']}")
+    bare_forms = bare_state_forms(torch, lib, tree)
+    prefilled = prefill_tree_check(torch, core, lib)
 
     st = tree.state
     check_invariants(st, tree.cfg)
@@ -567,8 +592,101 @@ def run_main_path(torch, core, lib, zipf_keys):
         "traced_ms_per_round": traced_on,
         "traced_ms_per_round_recorder_off": traced_off,
         "large_cap_scan": large_scan,
+        "bare_state_forms": bare_forms,
+        "prefill_tree": prefilled,
     }
     return summary, recorded, tree, oracle, history
+
+
+def bare_state_forms(torch, lib, tree) -> dict:
+    """``core.abtree.frontier_expand`` over the tree's bare state on the card
+    (K2 once a level: it must launch) against the same call on a CPU copy of
+    the state, all five outputs equal; ``descend`` + ``probe`` of the same
+    lanes' keys on the card equal to K1's leaf, found, slot and value."""
+    from repro_torch.core import abtree
+    from repro_torch.kernels.tree_descend.ops import descend_probe
+
+    t0 = time.perf_counter()
+    n, span, cap = FRONTIER_CHECK
+    rng = np.random.default_rng(SEED + 11)
+    lo = rng.integers(0, KEY_RANGE, n).astype(np.int64)
+    hi = lo + rng.integers(1, span + 1, n)
+    st, cfg = tree.state, tree.cfg
+    k1, k2 = lib.counter("descend_probe"), lib.counter("frontier_compact")
+    lo_d, hi_d = (torch.as_tensor(a, device=st.keys.device) for a in (lo, hi))
+    k2_0 = k2.launches
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    got = abtree.frontier_expand(st, cfg, lo_d, hi_d, cap)
+    torch.cuda.synchronize()
+    card_ms = (time.perf_counter() - t1) * 1e3
+    k2_launches = k2.launches - k2_0
+    if k2_launches != cfg.max_height:
+        raise AssertionError(f"frontier_expand on the card launched K2 {k2_launches} times, "
+                             f"not once a level ({cfg.max_height})")
+    cpu = abtree.TreeState(*(x.cpu() for x in st[:-1]),
+                           stats=abtree.TreeStats(*(x.cpu() for x in st.stats)))
+    want = abtree.frontier_expand(cpu, cfg, torch.as_tensor(lo), torch.as_tensor(hi), cap)
+    names = ("leaves", "cand_keys", "cand_vals", "touched", "overflow")
+    bad = [nm for g, w, nm in zip(got, want, names) if not torch.equal(g.cpu(), w)]
+    if bad:
+        raise AssertionError(f"frontier_expand on the card differs from the CPU's in {bad}")
+    leaf = abtree.descend(st, lo_d, cfg)
+    found, slot, val = abtree.probe(st, leaf, lo_d)
+    s = tree.stacked
+    k1_0 = k1.launches
+    fused = descend_probe(s.keys, s.vals, s.children, s.is_leaf, s.root, lo_d[None],
+                          max_height=cfg.max_height, notfound=int(abtree.NOTFOUND))
+    bad = [nm for g, w, nm in zip((leaf, found, slot, val), fused, ("leaf", "found", "slot", "val"))
+           if not torch.equal(g, w[0])]
+    if bad or k1.launches - k1_0 != 1:
+        raise AssertionError(f"descend + probe differ from K1 in {bad} "
+                             f"(K1 launched {k1.launches - k1_0} times)")
+    out = {"queries": n, "span": f"U[1,{span}]", "cap": cap, "card_ms": card_ms,
+           "k2_launches": k2_launches, "overflow_lanes": int(want[4].sum()),
+           "valid_leaves": int((want[0] != st.keys.shape[0] - 1).sum()),
+           "found": int(found.sum()), "equal": True}
+    out["seconds"] = time.perf_counter() - t0
+    log(f"bare-state forms: {out}")
+    return out
+
+
+def prefill_tree_check(torch, core, lib) -> dict:
+    """``data.workloads.prefill_tree`` of a fresh ``ABTree(PAPER)`` at
+    ``WorkloadConfig(key_range=PREFILL_TREE_RANGE)``: every round checked
+    lane for lane against ``DictOracle`` as it runs, the items equal to the
+    oracle's and the tree sound at the end."""
+    from repro_torch.configs.abtree import PAPER
+    from repro_torch.core.oracle import check_invariants
+    from repro_torch.data.workloads import WorkloadConfig, prefill_tree
+
+    tree, oracle = core.ABTree(PAPER), core.DictOracle()
+    rounds = []
+
+    class Checked:
+        def apply_round(self, ops, keys, vals):
+            out = tree.apply_round(ops, keys, vals)
+            check_round(out, oracle.apply_mixed_round(ops, keys, vals), ops, core.OP_RANGE,
+                        f"prefill_tree round {len(rounds)}")
+            rounds.append(int(keys.size))
+            return out
+
+    before = launch_counts(lib)
+    t0 = time.perf_counter()
+    prefill_tree(Checked(), WorkloadConfig(key_range=PREFILL_TREE_RANGE))
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    check_invariants(tree.state, tree.cfg)
+    items = tree.items()
+    if items != oracle.items() or len(items) != PREFILL_TREE_RANGE // 2:
+        raise AssertionError(f"prefill_tree: {len(items)} items, the oracle's differ or are not "
+                             f"{PREFILL_TREE_RANGE // 2}")
+    out = {"key_range": PREFILL_TREE_RANGE, "keys": len(items), "rounds": rounds,
+           "seconds": seconds, "retry_passes": tree.metrics.value("retry_passes"),
+           "height": int(tree.state.height),
+           "launches": {k: v - before[k] for k, v in launch_counts(lib).items()}}
+    log(f"prefill_tree: {out}")
+    return out
 
 
 def large_cap_scan(torch, tree, oracle, counters):
@@ -1323,7 +1441,8 @@ def run_obs_path(torch, core, lib, zipf_keys, tree, history, forest, forest_orac
     replays to the recovered contents, which are one of its prefix states;
     (d) the tree path's traced rounds written as a Chrome trace: schema
     valid, ``report_summary``'s phase totals equal to the tree path's traced
-    breakdown, and OBS_FOREST_ROUNDS traced rounds of the static forest:
+    breakdown and a counter track of each traced round's retry passes
+    (``Tracer.counter``), and OBS_FOREST_ROUNDS traced rounds of the static forest:
     valid, per-shard instants on every shard's track, ``router_pack`` spans,
     ``report.main --json`` 0; (e) the op audit of the search and scan phases
     on the tree path's tree over one mixed round.  The launch counts are
@@ -1477,6 +1596,15 @@ def run_obs_path(torch, core, lib, zipf_keys, tree, history, forest, forest_orac
         missing = {"round", "search_combine", "apply", "retry", "rebalance", "scan"} - totals.keys()
         if missing:
             raise AssertionError(f"tree trace lacks the phases {sorted(missing)}")
+        # the counter track: the retry passes of each traced round, on the engine's track
+        t1 = time.perf_counter()
+        samples = [e for e in doc["traceEvents"] if e["ph"] == "C"]
+        track = [e["args"]["value"] for e in samples if e["name"] == "retry_passes"]
+        want_track = [float(v) for v in history["traced_retry_passes"]]
+        if track != want_track or len(track) != len(samples) or {e["tid"] for e in samples} != {0}:
+            raise AssertionError(f"tree trace's counter track {track} != the traced rounds' "
+                                 f"retry passes {want_track}")
+        seconds["counter_track"] = time.perf_counter() - t1
         forest.tracer = Tracer()
         rows = timed_rounds(torch, lib, forest, forest_oracle, core, zipf_keys,
                             np.random.default_rng(SEED + 8), OBS_FOREST_ROUNDS, "obs forest")
@@ -1500,7 +1628,8 @@ def run_obs_path(torch, core, lib, zipf_keys, tree, history, forest, forest_orac
         seconds["traces"] = time.perf_counter() - t0
         out["traces"] = {
             "tree": {"events": summ["events"], "traced_rounds": TRACED_ROUNDS,
-                     "total_ms": totals, "bytes": Path(tpath).stat().st_size},
+                     "total_ms": totals, "bytes": Path(tpath).stat().st_size,
+                     "counter_track": {"name": "retry_passes", "values": track}},
             "forest": {"events": fsumm["events"], "rounds": len(rows),
                        "round_ms": [x["ms"] for x in rows], "shard_tids": sorted(tids),
                        "router_pack": fsumm["router_pack"],
@@ -2830,7 +2959,8 @@ def run_parallel_path(torch, lib, device):
     bit-equal, B7 24 a step on each; ``compressed_grad_reduce`` of qwen2's
     gradients over a (pod=1, data=1, model=1) mesh equal to
     ``dequantize_int8(_ef_quantize(...))`` on the card and on the CPU;
-    ``pipeline_apply`` with one stage equal to the stage; granite's MoE
+    ``pipeline_apply`` with one stage equal to the stage, its backward
+    within PIPE_GRAD_TOL of the stage's gradients; granite's MoE
     layer (grouped, ``moe_groups=32``) under the mesh equal to the
     mesh-free path.  The process group is destroyed at the end.  Beside it
     all, in two subprocesses started first, the dry-run of DRYRUN_CELL and
@@ -2996,7 +3126,29 @@ def run_parallel_path(torch, lib, device):
         pipe_equal = bool(torch.equal(piped, torch.tanh(xs @ w[0])))
         if not pipe_equal:
             raise AssertionError("pipeline_apply with one stage differs from the stage")
-        out["pipeline"] = {"stages": 1, **PARALLEL_PIPE, "d": cfg.d_model, "equal": pipe_equal}
+        # its backward of sum(piped * g) against the stage's own gradients
+        t1 = time.perf_counter()
+        g = torch.randn(xs.shape, generator=gen, device=device)
+        wg, xg = w.clone().requires_grad_(), xs.clone().requires_grad_()
+        sync()
+        t2 = time.perf_counter()
+        grads = torch.autograd.grad((pipeline_apply({"w": wg}, xg, body, pmesh) * g).sum(),
+                                    [wg, xg])
+        sync()
+        backward_ms = (time.perf_counter() - t2) * 1e3
+        wr, xr = w.clone().requires_grad_(), xs.clone().requires_grad_()
+        want_g = torch.autograd.grad((torch.tanh(xr @ wr[0]) * g).sum(), [wr, xr])
+        grad_err = {n: float((a - b).abs().max()) for n, a, b in zip(("w", "xs"), grads, want_g)}
+        grad_equal = {n: bool(torch.equal(a, b)) for n, a, b in zip(("w", "xs"), grads, want_g)}
+        if max(grad_err.values()) > PIPE_GRAD_TOL:
+            raise AssertionError(f"the one-stage pipeline's gradients differ from the stage's: "
+                                 f"{grad_err} > {PIPE_GRAD_TOL}")
+        out["pipeline"] = {"stages": 1, **PARALLEL_PIPE, "d": cfg.d_model, "equal": pipe_equal,
+                           "grad_max_abs_err": grad_err, "grad_equal": grad_equal,
+                           "grad_tolerance": PIPE_GRAD_TOL,
+                           "forward_backward_ms": backward_ms,
+                           "backward_check_s": time.perf_counter() - t1}
+        del g, wg, xg, wr, xr, grads, want_g
 
         # granite's MoE layer, grouped, under the mesh against the mesh-free path
         mcfg = get_config(PARALLEL_MOE_ARCH).replace(
@@ -3950,6 +4102,15 @@ def main() -> int:
         "total": t_end - t_dry, "dryrun_wait": t_dry - t_card}
     log(f"correction and examples added {t_end - t_dry:.1f}s")
     print(json.dumps({"examples_path": examples_summary, "card": smi}), flush=True)
+
+    # the seconds of the parity checks inside the phases above
+    parity = {"bare_state_forms": summary["bare_state_forms"]["seconds"],
+              "prefill_tree": summary["prefill_tree"]["seconds"],
+              "counter_track": obs_summary["seconds"]["counter_track"],
+              "pipeline_backward": parallel_summary["pipeline"]["backward_check_s"]}
+    parity["total_s"] = sum(parity.values())
+    log(f"parity checks took {parity['total_s']:.1f}s: {parity}")
+    print(json.dumps({"parity_checks_s": parity, "card": smi}), flush=True)
 
     # 7. every kernel against its plain version at main-path shapes
     rows = kernel_report(

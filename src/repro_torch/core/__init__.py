@@ -19,6 +19,7 @@ from repro_torch.core.abtree import (
     range_query,
 )
 from repro_torch.core.forest import ABForest, check_forest_invariants
+from repro_torch.core.elimination import EliminationResult, eliminate_batch
 from repro_torch.core.durable import (
     DurableABTree,
     DurableForest,
@@ -44,6 +45,7 @@ __all__ = [
     "DurableABTree",
     "DurableForest",
     "EMPTY",
+    "EliminationResult",
     "FaultPlan",
     "FaultSpec",
     "InjectedFault",
@@ -64,6 +66,7 @@ __all__ = [
     "build_plan",
     "check_forest_invariants",
     "check_invariants",
+    "eliminate_batch",
     "range_query",
     "recover",
     "recover_forest",

@@ -28,6 +28,7 @@ import torch
 from repro_torch.core import elimination as elim
 from repro_torch.kernels import _lib
 from repro_torch.kernels.tree_descend.ops import frontier_compact
+from repro_torch.kernels.tree_descend.ref import descend_ref, probe_ref
 from repro_torch.obs.metrics import (
     MetricsRegistry,
     RegistryBackedCounters,
@@ -161,6 +162,39 @@ def make_tree(cfg: TreeConfig, n_shards: int = 1, device=None) -> TreeState:
         dirty=dirty,
         stats=TreeStats(*([zeros64.clone() for _ in range(8)])),
     )
+
+
+def _stack_one(state: TreeState) -> TreeState:
+    """One shard's bare state (node axis 0, as ``ABTree.state`` gives it) as
+    a one-shard stack of views."""
+    return TreeState(*(x.unsqueeze(0) for x in state[:-1]),
+                     stats=TreeStats(*(x.unsqueeze(0) for x in state.stats)))
+
+
+# ----------------------------------------------------------------------------
+# Phase 1 over a bare state: the plain descent and leaf probe (the oracles of
+# the fused search kernel, ``kernels/tree_descend/ref.py``, bound to the
+# TreeState layout; the round engine searches through ``descend_probe``)
+# ----------------------------------------------------------------------------
+
+
+def descend(state: TreeState, keys: torch.Tensor, cfg: TreeConfig) -> torch.Tensor:
+    """Root-to-leaf search of a bare state for a batch of keys -> (B,) int32
+    leaf ids.  The per-level child choice mirrors the paper's ``search``:
+    follow ptrs[#routers <= key]."""
+    keys = torch.as_tensor(keys, dtype=KEY_DTYPE, device=state.keys.device)
+    return descend_ref(state.keys[None], state.children[None], state.is_leaf[None],
+                       state.root.reshape(1), keys[None], max_height=cfg.max_height)[0]
+
+
+def probe(state: TreeState, leaf_ids: torch.Tensor, keys: torch.Tensor):
+    """Unsorted-leaf probe of a bare state: lane-parallel compare across the
+    b slots.  Returns ``(found (B,) bool, slot (B,) int32, val (B,) int64)``,
+    ``val`` NOTFOUND where the key is absent."""
+    keys = torch.as_tensor(keys, dtype=KEY_DTYPE, device=state.keys.device)
+    found, slot, val = probe_ref(state.keys[None], state.vals[None], leaf_ids[None], keys[None],
+                                 notfound=NOTFOUND)
+    return found[0], slot[0], val[0]
 
 
 # ----------------------------------------------------------------------------
@@ -787,6 +821,19 @@ def frontier_expand_sharded(
         touched,
         overflow,
     )
+
+
+def frontier_expand(
+    state: TreeState, cfg: TreeConfig, lo: torch.Tensor, hi: torch.Tensor, frontier_cap: int,
+):
+    """:func:`frontier_expand_sharded` over a bare state (node axis 0, as
+    ``ABTree.state`` gives it): each query's root expanded into the leaves
+    whose key range intersects ``[lo, hi)``, every level compacted by
+    ``frontier_compact`` (the CUDA kernel on the card).  Returns
+    ``(leaves (B, F), cand_keys (B, F·b), cand_vals (B, F·b), touched (L,
+    B, F), overflow (B,))``, as JAX's ``frontier_expand``."""
+    sid = torch.zeros(lo.shape, dtype=torch.int32, device=lo.device)
+    return frontier_expand_sharded(_stack_one(state), cfg, sid, lo, hi, frontier_cap)
 
 
 # ----------------------------------------------------------------------------

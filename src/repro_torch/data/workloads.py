@@ -1,6 +1,7 @@
 """Dictionary-operation workload generators (numpy copy of
 ``src/repro/data/workloads.py``): uniform / Zipfian key streams × update
-fraction, plus the YCSB-E scan-heavy mix."""
+fraction, plus the YCSB-E scan-heavy mix, the split-path baseline of a
+mixed round and the paper's prefill."""
 from __future__ import annotations
 
 import dataclasses
@@ -8,7 +9,7 @@ import functools
 
 import numpy as np
 
-from repro_torch.core.elimination import OP_DELETE, OP_FIND, OP_INSERT, OP_RANGE
+from repro_torch.core.elimination import OP_DELETE, OP_FIND, OP_INSERT, OP_NOP, OP_RANGE
 
 
 @dataclasses.dataclass(frozen=True)
@@ -75,3 +76,39 @@ def ycsb_e_stream(
             ops == OP_RANGE, spans, rng.integers(0, 1 << 30, cfg.batch)
         ).astype(np.int64)
         yield ops, keys, vals
+
+
+def split_scan_round(ops: np.ndarray, keys: np.ndarray, vals: np.ndarray):
+    """Split one mixed round into its scan half and its point-op half: the
+    split-path baseline for A/B benchmarks, which runs every batch as two
+    rounds (the engine itself runs mixed batches fused, scans linearized
+    before the round's writes).
+
+    Returns ``((lo, hi), (ops', keys', vals'))``: OP_RANGE rows become
+    ``[lo, lo + span)`` scan intervals (for ``scan_round``); in the point-op
+    arrays they are masked to OP_NOP, so each op keeps its result position
+    in ``apply_round``."""
+    ops = np.asarray(ops)
+    keys = np.asarray(keys)
+    vals = np.asarray(vals)
+    is_scan = ops == OP_RANGE
+    lo = keys[is_scan]
+    hi = lo + np.maximum(vals[is_scan], 1)
+    point_ops = np.where(is_scan, OP_NOP, ops).astype(np.int32)
+    return (lo, hi), (point_ops, keys, np.where(is_scan, 0, vals))
+
+
+def prefill_tree(tree, cfg: WorkloadConfig, target_frac: float = 0.5):
+    """Prefill to the expected steady-state size (paper methodology):
+    ``target_frac`` of the key range, distinct keys from ``cfg.seed + 999``
+    with values equal to the keys, in insert rounds of 1,024 lanes through
+    ``tree.apply_round`` (an ``ABTree`` in either mode, an ``ABForest``, a
+    ``DurableABTree`` or a ``DurableForest``'s ``forest``)."""
+    rng = np.random.default_rng(cfg.seed + 999)
+    n = int(cfg.key_range * target_frac)
+    keys = rng.choice(cfg.key_range, size=n, replace=False).astype(np.int64)
+    bs = 1024
+    for i in range(0, n, bs):
+        chunk = keys[i : i + bs]
+        tree.apply_round(np.full(chunk.size, OP_INSERT, np.int32), chunk, chunk)
+    return tree

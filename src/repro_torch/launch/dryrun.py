@@ -107,9 +107,8 @@ def run_cell(arch: str, shape_name: str, mesh_kind: str, overrides=None) -> dict
     )
     from repro_torch.launch.inputs import input_specs
     from repro_torch.launch.mesh import make_production_mesh
-    from repro_torch.models import backbone, count_params, layers
-    from repro_torch.models.params import map_specs
-    from repro_torch.optim.adamw import adamw_init
+    from repro_torch.models import abstract_params, backbone, count_params, layers
+    from repro_torch.optim.adamw import adamw_init, tree_map
     from repro_torch.parallel.sharding import batch_shardings, cache_shardings
     from repro_torch.train.step import (
         make_prefill_step,
@@ -136,9 +135,9 @@ def run_cell(arch: str, shape_name: str, mesh_kind: str, overrides=None) -> dict
     mesh = make_production_mesh(multi_pod=mesh_kind == "multi", device_type="cpu")
     t0 = time.time()
     spec_tree = backbone.model_spec(cfg)
-    dtype = getattr(torch, param_dtype) if param_dtype else None  # serving-weight dtype (opt)
-    params = map_specs(lambda path, s: torch.empty(s.shape, dtype=dtype or s.dtype, device="meta"),
-                       spec_tree)
+    params = abstract_params(spec_tree)
+    if param_dtype:  # serving-weight dtype (opt)
+        params = tree_map(lambda a: a.to(getattr(torch, param_dtype)), params)
     shardings = state_shardings(cfg, mesh)
     params = place(params, shardings["params"])
     rec["n_params"] = count_params(spec_tree)

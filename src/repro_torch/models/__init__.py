@@ -9,10 +9,18 @@ from repro_torch.models.backbone import (
     model_spec,
 )
 from repro_torch.models.config import ModelConfig, reduced
-from repro_torch.models.params import count_params, init_params
+from repro_torch.models.params import (
+    RULE_SETS,
+    abstract_params,
+    count_params,
+    init_params,
+    param_shardings,
+)
 
 __all__ = [
+    "RULE_SETS",
     "ModelConfig",
+    "abstract_params",
     "cache_spec",
     "compute_params",
     "count_params",
@@ -22,5 +30,6 @@ __all__ = [
     "init_params",
     "loss_fn",
     "model_spec",
+    "param_shardings",
     "reduced",
 ]

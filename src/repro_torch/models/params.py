@@ -129,6 +129,13 @@ def init_params(spec_tree, device=None, seed: int = 0) -> dict:
     return map_specs(lambda p, s: init_leaf(s, p, device, seed), spec_tree)
 
 
+def abstract_params(spec_tree) -> dict:
+    """Every leaf of ``spec_tree`` as a tensor of its shape and dtype on the
+    ``meta`` device: no storage (the dry-run's stand-ins, JAX's
+    ``ShapeDtypeStruct``)."""
+    return map_specs(lambda p, s: torch.empty(s.shape, dtype=s.dtype, device="meta"), spec_tree)
+
+
 def param_shardings(spec_tree, mesh, rules) -> dict:
     """A ``NamedSharding`` a leaf of ``spec_tree`` under ``rules`` on
     ``mesh`` (a ``DeviceMesh`` or ``{axis: size}``); a dim whose axes do

@@ -14,7 +14,7 @@ not just the launch.
     a measurement tool, not a production default.
 
 Events use the Chrome trace-event model (complete events ``ph="X"``,
-instants ``ph="i"``); ``export`` writes them through
+instants ``ph="i"``, counters ``ph="C"``); ``export`` writes them through
 ``obs/trace_export.py`` in the ``{"traceEvents": [...]}`` envelope, with the
 process and thread names Perfetto shows.
 """
@@ -102,7 +102,7 @@ class _Span:
 
 
 class Tracer:
-    """Span/instant recorder in Chrome trace-event form.  Track 0 is
+    """Span/instant/counter recorder in Chrome trace-event form.  Track 0 is
     the engine's sequencing thread; track ``1 + s`` is shard ``s``."""
 
     def __init__(self, enabled: bool = True, *, pid: int = 0):
@@ -134,6 +134,21 @@ class Tracer:
             }
         )
 
+    def counter(self, name: str, value, *, shard: Optional[int] = None):
+        """Chrome counter-track sample (rendered as a graph in Perfetto)."""
+        if not self.enabled:
+            return
+        self.events.append(
+            {
+                "name": name,
+                "ph": "C",
+                "ts": (time.perf_counter() - self._epoch) * 1e6,
+                "pid": self.pid,
+                "tid": 0 if shard is None else 1 + int(shard),
+                "args": {"value": float(value)},
+            }
+        )
+
     def shard_marks(self, name: str, per_shard, **extra):
         """One instant per shard with non-zero work (lane counts are the
         per-shard cost signal of a phase that spans all shards)."""
@@ -142,6 +157,11 @@ class Tracer:
         for s, n in enumerate(per_shard):
             if int(n):
                 self.instant(name, shard=s, lanes=int(n), **extra)
+
+    def clear(self):
+        """Drop the recorded events and restart the clock at 0."""
+        self.events.clear()
+        self._epoch = time.perf_counter()
 
     def export(self, path: str) -> str:
         """Write the Chrome trace-event JSON file (Perfetto-loadable)."""

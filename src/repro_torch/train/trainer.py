@@ -96,7 +96,8 @@ class Trainer:
         # ---- init or resume ---------------------------------------------
         self.step = 0
         params = init_params(backbone.model_spec(model_cfg), self.device)
-        shardings = state_shardings(model_cfg, mesh) if mesh is not None else None
+        # the params' and AdamW state's placements on the mesh (None without one)
+        self.shardings = shardings = state_shardings(model_cfg, mesh) if mesh is not None else None
         if shardings is not None:
             params = place(params, shardings["params"])
         opt = adamw_init(params)

@@ -1207,3 +1207,83 @@ def test_mesh_train_step_at_the_archs_remat_equals_meshfree(cuda, arch):
             assert torch.equal(a, b.full_tensor())
     finally:
         shutdown()
+
+
+PIPE_GRAD_TOL = 1e-5  # f32 gradients summed a microbatch at a time against one batched product
+
+
+@pytest.mark.parametrize("placement", ["whole", "dtensor"])
+def test_one_stage_pipeline_backward_on_card(cuda, placement):
+    """A one-stage ``pipeline_apply`` on the 1-rank NCCL mesh: the output
+    equals the stage's, and the gradients of ``sum(out * g)`` for the stage
+    weights (whole, or a pod-split ``DTensor`` whose gradient keeps its
+    placement) and the microbatches equal the stage's own autograd within
+    ``PIPE_GRAD_TOL``."""
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch._shardmap_compat import NamedSharding, PartitionSpec, distribute
+    from repro_torch.launch.mesh import make_host_mesh, make_mesh, shutdown
+    from repro_torch.parallel.pipeline import pipeline_apply
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gen = torch.Generator(device=cuda).manual_seed(7)
+    w = torch.randn((1, 64, 64), generator=gen, device=cuda) * 0.1
+    xs = torch.randn((4, 8, 64), generator=gen, device=cuda)
+    g = torch.randn((4, 8, 64), generator=gen, device=cuda)
+    try:
+        make_host_mesh()
+        pmesh = make_mesh((1,), ("pod",), "cuda")
+        wp = w if placement == "whole" else distribute(
+            w, NamedSharding(pmesh, PartitionSpec("pod", None, None)))
+        wp, xp = wp.detach().requires_grad_(), xs.clone().requires_grad_()
+        out = pipeline_apply({"w": wp}, xp, lambda p, h: torch.tanh(h @ p["w"]), pmesh)
+        gw, gx = torch.autograd.grad((out * g).sum(), [wp, xp])
+    finally:
+        shutdown()
+    if placement == "dtensor":
+        assert isinstance(gw, DTensor) and gw.placements == wp.placements
+        gw = gw.full_tensor()
+    wr, xr = w.clone().requires_grad_(), xs.clone().requires_grad_()
+    stage = torch.tanh(xr @ wr[0])
+    rw, rx = torch.autograd.grad((stage * g).sum(), [wr, xr])
+    assert torch.equal(out.detach(), stage.detach())
+    for got, want in ((gw, rw), (gx, rx)):
+        assert got.is_cuda and float((got - want).abs().max()) <= PIPE_GRAD_TOL
+
+
+def test_bare_state_forms_on_card_equal_cpu(cuda):
+    """``core.abtree.frontier_expand`` over a grown tree's bare state on the
+    card (each level compacted by K2, launched once a level) equals the same
+    call on a CPU copy, all five outputs, at caps that overflow and caps
+    that fit; ``descend`` + ``probe`` on the card equal K1's answers."""
+    from repro_torch.core import abtree
+
+    t, keys = _grown(cuda)
+    st = t.state
+    cpu = abtree.TreeState(*(x.cpu() for x in st[:-1]),
+                           stats=abtree.TreeStats(*(x.cpu() for x in st.stats)))
+    rng = np.random.default_rng(11)
+    lo = rng.integers(0, 10**6, 1024).astype(np.int64)
+    hi = lo + rng.integers(1, 65, 1024)
+    lo[:4] = (0, 0, int(EMPTY), 10**5)
+    hi[:4] = (int(EMPTY), 10**6, int(EMPTY), 10**5)  # everything, most, padding, empty
+    for cap in (2, 8, 64):
+        before = td_kernel.FRONTIER_COMPACT.launches
+        got = abtree.frontier_expand(st, t.cfg, torch.as_tensor(lo, device=cuda),
+                                     torch.as_tensor(hi, device=cuda), cap)
+        assert td_kernel.FRONTIER_COMPACT.launches - before == t.cfg.max_height
+        want = abtree.frontier_expand(cpu, t.cfg, torch.as_tensor(lo), torch.as_tensor(hi), cap)
+        for g, w, name in zip(got, want, ("leaves", "cand_keys", "cand_vals", "touched",
+                                          "overflow")):
+            assert g.is_cuda
+            _eq(g, w, f"cap {cap} {name}")
+        assert bool(want[4][0]) and bool(want[4][1])  # hundreds of leaves: past every cap
+    q = torch.as_tensor(np.concatenate([keys[:500], lo[:500]]), device=cuda)
+    q[0] = int(EMPTY)
+    leaf = abtree.descend(st, q, t.cfg)
+    found, slot, val = abtree.probe(st, leaf, q)
+    s = t.stacked
+    k1 = td_ops.descend_probe(s.keys, s.vals, s.children, s.is_leaf, s.root, q[None],
+                              max_height=t.cfg.max_height, notfound=int(NOTFOUND))
+    for g, w, name in zip((leaf, found, slot, val), k1, ("leaf", "found", "slot", "val")):
+        _eq(g, w[0], name)

@@ -23,7 +23,12 @@
       inputs (two addends: exact) and within 2e-2 of an input every rank
       shares (JAX's test);
   (c) ``pipeline_apply`` on a 4-stage pod mesh (pod=4, data=2) equal to
-      the sequential stack within 1e-5;
+      the sequential stack within 1e-5; its gradients of ``sum(out * g)``
+      for the microbatches and for whole and pod-split ``DTensor`` stage
+      params (and for the weights alone), on every rank, within 1e-5 of
+      ``jax.grad`` of JAX's ``pipeline_apply`` (``test_torch_pipeline_grad.py``'s
+      4-device subprocess, started beside the job) and of the sequential
+      stack's;
   (d) the grouped MoE under a 2-rank data mesh (reduced granite,
       ``moe_groups=4``, 2 groups a rank) equal to the port's mesh-free
       grouped path and to JAX's mesh-free ``moe_apply`` within 1e-5; with
@@ -122,6 +127,12 @@ def pipe_inputs():
     w = (rng.standard_normal((p["n_stages"], p["d"], p["d"])) * 0.3).astype(np.float32)
     x = rng.standard_normal((p["m"], p["b"], p["d"])).astype(np.float32)
     return w, x
+
+
+def pipe_cotangent():
+    """``g`` of the pipeline's loss ``sum(out * g)``."""
+    p = PIPE
+    return np.random.default_rng(1).standard_normal((p["m"], p["b"], p["d"])).astype(np.float32)
 
 
 def moe_input(d_model):
@@ -235,6 +246,30 @@ def _scenarios(rank, workdir):
     pipe2 = pipeline_apply({"w": sharded}, torch.from_numpy(x),
                            lambda p, h: torch.tanh(h @ p["w"]), mesh_p)
     out["pipeline_sharded_equal"] = bool(torch.equal(pipe, pipe2))
+    # its gradients of sum(out * g), params whole and split over pod
+    g = torch.from_numpy(pipe_cotangent())
+    out["pipeline_grad"] = {}
+    for name, wp in (("whole", wt.clone().requires_grad_()),
+                     ("dtensor", sharded.detach().requires_grad_())):
+        xp = torch.from_numpy(x).requires_grad_()
+        got = pipeline_apply({"w": wp}, xp, lambda p, h: torch.tanh(h @ p["w"]), mesh_p)
+        gw, gx = torch.autograd.grad((got * g).sum(), [wp, xp])
+        rec = {"forward_equal": bool(torch.equal(got.detach(), pipe)), "gx": gx.tolist()}
+        if isinstance(gw, DTensor):
+            rec.update(gw=gw.full_tensor().tolist(), gw_local=gw.to_local().tolist(),
+                       placed=gw.placements == wp.placements,
+                       stage=mesh_p.get_local_rank("pod"))
+        else:
+            rec["gw"] = gw.tolist()
+        out["pipeline_grad"][name] = rec
+    # the weights alone asked for, the microbatches without a gradient (a
+    # trainer's call): every hand-off's backward still runs on every rank
+    wp = wt.clone().requires_grad_()
+    got = pipeline_apply({"w": wp}, torch.from_numpy(x), lambda p, h: torch.tanh(h @ p["w"]),
+                         mesh_p)
+    (gw,) = torch.autograd.grad((got * g).sum(), [wp])
+    out["pipeline_grad"]["whole_w_only"] = {"forward_equal": bool(torch.equal(got.detach(), pipe)),
+                                            "gw": gw.tolist()}
 
     # (d) grouped MoE on a 2-rank data mesh
     mcfg = moe_config()
@@ -338,7 +373,18 @@ def run_job(out_path, world=RANKS):
 
 
 @pytest.fixture(scope="module")
-def rank_job(tmp_path_factory):
+def jax_pipe():
+    """``jax.grad`` of JAX's 4-stage ``pipeline_apply``, in a subprocess
+    started before the rank job and read by the test that needs it."""
+    from test_torch_pipeline_grad import JaxPipelineGrads
+
+    run = JaxPipelineGrads()
+    yield run
+    run.close()
+
+
+@pytest.fixture(scope="module")
+def rank_job(tmp_path_factory, jax_pipe):
     out = tmp_path_factory.mktemp("ranks") / "ranks.json"
     env = {**os.environ, "PYTHONPATH": str(ROOT / "src"), "OMP_NUM_THREADS": "1"}
     proc = subprocess.run([sys.executable, __file__, "--ranks", str(RANKS), str(out)],
@@ -642,6 +688,47 @@ def test_pipeline_matches_sequential(rank_job):
     for r in rank_job:
         np.testing.assert_allclose(np.asarray(r["pipeline"]), ref, atol=1e-5)
         assert r["pipeline_sharded_equal"]
+
+
+def test_jax_pipeline_grads_equal_the_sequential_stacks(jax_pipe):
+    """The reference: JAX's pipeline gradient equals JAX's sequential
+    gradient and torch's autograd through the same stack."""
+    from test_torch_pipeline_grad import GRAD_TOL, stack_grads
+
+    want = jax_pipe.result()
+    w, x = pipe_inputs()
+    _, gw, gx = stack_grads(w, x, pipe_cotangent())
+    assert want["gw"].shape == (PIPE["n_stages"], PIPE["d"], PIPE["d"])
+    for key, port in (("gw", gw), ("gx", gx)):
+        np.testing.assert_allclose(want[key], want[key + "_seq"], atol=GRAD_TOL)
+        np.testing.assert_allclose(port, want[key + "_seq"], atol=GRAD_TOL)
+
+
+def test_pipeline_grads_match_jax_on_every_rank(rank_job, jax_pipe):
+    """The backward of the 4-stage pipeline on each of the 8 ranks: the
+    microbatches' gradient and the stage params' (whole: every rank holds
+    all four slices; a pod-split DTensor: each rank's shard is its stage's
+    slice, the placement kept) equal ``jax.grad`` of JAX's pipeline and the
+    sequential stack's within 1e-5, also when the weights alone are asked
+    for (hand-offs that reach no input asked for would otherwise skip their
+    backward on some ranks and leave their neighbours waiting).  A backward
+    that reduced the replicated output's cotangent again would give 4x
+    these."""
+    from test_torch_pipeline_grad import GRAD_TOL
+
+    want = jax_pipe.result()
+    for r in rank_job:
+        for name, got in r["pipeline_grad"].items():
+            assert got["forward_equal"], name
+            for key in [k for k in ("gw", "gx") if k in got]:
+                a = np.asarray(got[key], np.float32)
+                np.testing.assert_allclose(a, want[key], atol=GRAD_TOL, err_msg=f"{name} {key}")
+                np.testing.assert_allclose(a, want[key + "_seq"], atol=GRAD_TOL,
+                                           err_msg=f"{name} {key} against the stack")
+        dt = r["pipeline_grad"]["dtensor"]
+        assert dt["placed"]
+        np.testing.assert_allclose(np.asarray(dt["gw_local"], np.float32),
+                                   want["gw"][dt["stage"]][None], atol=GRAD_TOL)
 
 
 def test_grouped_moe_under_a_mesh_matches_meshfree(rank_job):
