@@ -282,8 +282,8 @@ DURABLE_INDEX_GROUP = 4
 # OBS_CRASH_ROUNDS rounds of BATCH, before its crash; OBS_FOREST_ROUNDS
 # traced rounds of the static forest
 OBS_CRASH_FIRST, OBS_CRASH_ROUNDS, OBS_FOREST_ROUNDS = 4_096, 7, 2
-COMMIT_HISTS = ("commit_capture_s", "journal_flush_s", "manifest_commit_s", "commit_latency_s",
-                "journal_gc_s")
+COMMIT_HISTS = ("commit_capture_s", "journal_flush_s", "commit_sidecar_s", "manifest_commit_s",
+                "commit_latency_s", "journal_gc_s")
 TREE_KERNELS = ("descend_probe", "frontier_compact", "elim_combine", "range_scan")
 SERVE_KERNELS = TREE_KERNELS + ("decode_attention",)
 # serve phase: qwen2-0.5b at full width and depth
@@ -1099,10 +1099,11 @@ def hist_marks(t) -> dict:
 def stage_summary(rows, t, marks, directory) -> dict:
     """A durable stage's rounds: wall ms, ops/s and the journal's work a
     round, the commit histograms (capture = the device gather and host
-    copy, journal_flush = the npz files written and fsynced, manifest =
-    the manifest write, rename and directory fsync, latency = the whole
-    commit, gc = the collection of unreferenced files after it) over the
-    stage's commits, and the journal's bytes on disk."""
+    copy, journal_flush = the npz files written and fsynced, sidecar = the
+    recorder's ring encoded, written and fsynced (none with the recorder
+    off), manifest = the manifest write, rename and directory fsync,
+    latency = the whole commit, gc = the collection of unreferenced files
+    after it) over the stage's commits, and the journal's bytes on disk."""
     ms = [r["ms"] for r in rows]
     n = len(rows)
     return {

@@ -213,6 +213,30 @@ def _to_host(t: torch.Tensor) -> np.ndarray:
     return t.detach().to("cpu", copy=True).numpy()
 
 
+class _Phase:
+    """One phase of a commit: its span, and on a clean exit one observation
+    of its histogram (its seconds plus ``carry``, an earlier part's)."""
+
+    __slots__ = ("_span", "_reg", "_hist", "_carry", "t0", "seconds")
+
+    def __init__(self, span, reg, hist: Optional[str], carry: float):
+        self._span, self._reg, self._hist, self._carry = span, reg, hist, carry
+
+    def __enter__(self):
+        self._span.__enter__()
+        self.t0 = time.perf_counter()
+        return self
+
+    def note(self, **kw):
+        self._span.note(**kw)
+
+    def __exit__(self, *exc):
+        self.seconds = time.perf_counter() - self.t0
+        if exc[0] is None and self._hist is not None:
+            self._reg.observe(self._hist, self._carry + self.seconds)
+        return self._span.__exit__(*exc)
+
+
 @dataclass
 class DurableStats:
     commits: int = 0
@@ -302,6 +326,10 @@ class _DurableBase:
     @recorder.setter
     def recorder(self, r):
         self._holder().recorder = r
+
+    def _phase(self, name: str, hist: Optional[str] = None, carry: float = 0.0, **args) -> _Phase:
+        """The commit phase ``name``, timed once for its span and ``hist``."""
+        return _Phase(self.tracer.span(name, **args), self.metrics, hist, carry)
 
     def forensics_records(self):
         """The audit records recovered from the committed forensics sidecar
@@ -438,7 +466,6 @@ class _DurableBase:
             # through the same engine): those intermediate states are not
             # round boundaries and must never become the durable prefix.
             return
-        reg = self.metrics
         # -- group-commit gate: absorb this round into the pending group
         # (dirty bitmaps keep accumulating in the holder, zero I/O) and
         # return unless a boundary condition fires: the group filled, aged
@@ -459,8 +486,6 @@ class _DurableBase:
             # dying here loses exactly the absorbed rounds; recovery lands
             # on the last complete group boundary (the previous manifest).
             self.faults.maybe_fire("mid_group", self._commit_idx)
-            reg.set_gauge("group_pending_rounds", self._group_rounds)
-            reg.set_gauge("group_pending_age_s", now - self._group_start)
             return
         self._commit_group(force_snapshot)
 
@@ -482,51 +507,56 @@ class _DurableBase:
             force_snapshot, max_attempts = True, 1
         else:
             max_attempts = 1 + max(0, self.commit_retries)
-        # serialize with a still-flying async boundary: journal bookkeeping
-        # is single-writer, so the previous commit must land first; after
-        # this join every input of the per-shard file plan is settled.
-        self._join_commit()
-        absorbed = self._group_rounds
-        self._group_rounds = 0
-        self._group_start = None
-        reg.set_gauge("group_pending_rounds", 0)
-        reg.set_gauge("group_pending_age_s", 0.0)
-        # -- synchronous capture: the file plan of every shard, and on the
-        # host exactly the rows those files hold.  Everything downstream
-        # reads only this dict, never the live holder (which keeps
-        # mutating under async commits).
-        t0 = time.perf_counter()
-        idx = self._commit_idx
-        capacity = self._capacity()
-        roots = self._shard_roots()
-        jobs = self._plan_jobs(idx, force_snapshot, capacity, self._take_dirty_all(), roots)
-        reg.observe("commit_capture_s", time.perf_counter() - t0)
-        cap = {
-            "idx": idx,
-            "jobs": jobs,
-            "roots": roots,
-            "capacity": capacity,
-            "mode": self._mode(),
-            "extra": self._manifest_extra(),
-            "absorbed": absorbed,
-            "max_attempts": max_attempts,
-            "was_degraded": self._degraded,
-            "t_start": t0,
-            "sidecar": None,
-        }
-        rec = getattr(self._holder(), "recorder", None)
-        if rec is not None and rec.enabled:
-            # the sidecar must describe the COMMITTED prefix, not whatever
-            # rounds run while an async commit is in flight: capture the
-            # ring now, at the group boundary.
-            cap["sidecar"] = (int(self._holder()._rounds), rec.dump_records())
-        if self.commit_async and not self._degraded:
-            if self._commit_pool is None:
-                self._commit_pool = ThreadPoolExecutor(
-                    max_workers=1, thread_name_prefix="durable-commit"
-                )
-            self._commit_future = self._commit_pool.submit(self._commit_finish, cap)
-        else:
+        with self.tracer.span("commit") as sp:
+            # serialize with a still-flying async boundary: journal bookkeeping
+            # is single-writer, so the previous commit must land first; after
+            # this join every input of the per-shard file plan is settled.
+            self._join_commit()
+            absorbed = self._group_rounds
+            self._group_rounds = 0
+            self._group_start = None
+            # -- synchronous capture: the file plan of every shard, and on the
+            # host exactly the rows those files hold.  Everything downstream
+            # reads only this dict, never the live holder (which keeps
+            # mutating under async commits).
+            with self._phase("commit.capture", "commit_capture_s") as ph:
+                idx = self._commit_idx
+                capacity = self._capacity()
+                roots = self._shard_roots()
+                jobs = self._plan_jobs(idx, force_snapshot, capacity, self._take_dirty_all(), roots)
+            sp.note(commit=idx, rounds=absorbed)
+            cap = {
+                "idx": idx,
+                "jobs": jobs,
+                "roots": roots,
+                "capacity": capacity,
+                "mode": self._mode(),
+                "extra": self._manifest_extra(),
+                "absorbed": absorbed,
+                "max_attempts": max_attempts,
+                "was_degraded": self._degraded,
+                "t_start": ph.t0,
+                "sidecar": None,
+            }
+            rec = getattr(self._holder(), "recorder", None)
+            if rec is not None and rec.enabled:
+                # the sidecar must describe the COMMITTED prefix, not whatever
+                # rounds run while an async commit is in flight: capture the
+                # ring now, at the group boundary.
+                with self._phase("sidecar.encode") as ph:
+                    cap["sidecar"] = (int(self._holder()._rounds), rec.dump_records())
+                cap["sidecar_encode_s"] = ph.seconds
+            if self.commit_async and not self._degraded:
+                if self._commit_pool is None:
+                    self._commit_pool = ThreadPoolExecutor(max_workers=1,
+                                                           thread_name_prefix="commit")
+                self._commit_future = self._commit_pool.submit(self._commit_finish_async, cap)
+            else:
+                self._commit_finish(cap)
+
+    def _commit_finish_async(self, cap: dict):
+        """``_commit_finish`` on the commit thread, under its own span."""
+        with self.tracer.span("commit.finish", commit=cap["idx"]):
             self._commit_finish(cap)
 
     _EMPTY_IDS = np.empty(0, np.int32)
@@ -659,9 +689,8 @@ class _DurableBase:
                       else int(self._holder()._rounds))
             rec.commit(idx, rounds, rounds_absorbed=cap["absorbed"])
         reg.observe("commit_latency_s", time.perf_counter() - cap["t_start"])
-        t0 = time.perf_counter()
-        self._gc(manifest)
-        reg.observe("journal_gc_s", time.perf_counter() - t0)
+        with self._phase("commit.gc", "journal_gc_s"):
+            self._gc(manifest)
 
     def _commit_once(self, cap: dict, attempt: int) -> dict:
         """One attempt at the full link-and-persist sequence.  All journal
@@ -669,15 +698,12 @@ class _DurableBase:
         only after the rename + directory sync land, so a failed attempt
         (raise anywhere) leaves the in-memory generation exactly as
         committed, and a retry rebuilds the identical candidates."""
-        tr = self.tracer
         reg = self.metrics
         plan = self.faults
         idx = cap["idx"]
         jobs = cap["jobs"]
-        t0 = time.perf_counter()
-        with tr.span("journal_flush", commit=idx, files=len(jobs)):
+        with self._phase("journal_flush", "journal_flush_s", commit=idx, files=len(jobs)):
             written = self._write_shard_files(jobs, idx, attempt)
-        reg.observe("journal_flush_s", time.perf_counter() - t0)
         # candidate bookkeeping, installed only after the commit point
         snapshots = dict(self._snapshots)
         segments = {u: list(v) for u, v in self._segments.items()}
@@ -685,7 +711,7 @@ class _DurableBase:
         file_crcs = dict(self._file_crcs)
         delta_rows = dict(self._delta_rows)
         delta_count = dict(self._delta_count)
-        for (kind, s, uid, fname, node_ids, _, _, _), (nbytes, nnodes, dt_w, crc) in zip(
+        for (kind, s, uid, fname, node_ids, _, _, _), (nbytes, nnodes, crc) in zip(
             jobs, written
         ):
             self.dstats.flush_bytes += nbytes
@@ -694,7 +720,6 @@ class _DurableBase:
             reg.inc("flush_bytes", nbytes, shard=s)
             reg.inc("fsyncs", shard=s)
             reg.inc("nodes_flushed", nnodes, shard=s)
-            reg.observe("fsync_latency_s", dt_w)
             if kind == "snap":
                 snapshots[uid] = fname
                 segments[uid] = []
@@ -726,18 +751,21 @@ class _DurableBase:
             audit_ref = f"audit_{idx:08d}.jsonl"
             apath = os.path.join(self.dir, audit_ref)
             tmp_a = apath + ".tmp"
-            header = json.dumps({"kind": "sidecar", "commit_idx": idx,
-                                 "backend": self.backend, "rounds": rounds})
-            data_a = ("\n".join([header, *records]) + "\n").encode()
-            file_crcs[audit_ref] = zlib.crc32(data_a) & 0xFFFFFFFF
-            torn = plan.fail("sidecar_write", commit=idx, attempt=attempt)
-            if torn is not None:
-                data_a = data_a[: max(1, int(len(data_a) * torn))]
-            with open(tmp_a, "wb") as f:
-                f.write(data_a)
-                f.flush()
-                os.fsync(f.fileno())
-            os.replace(tmp_a, apath)
+            with self._phase("sidecar.write", "commit_sidecar_s", cap["sidecar_encode_s"],
+                             commit=idx, records=len(records)) as ph:
+                header = json.dumps({"kind": "sidecar", "commit_idx": idx,
+                                     "backend": self.backend, "rounds": rounds})
+                data_a = ("\n".join([header, *records]) + "\n").encode()
+                file_crcs[audit_ref] = zlib.crc32(data_a) & 0xFFFFFFFF
+                torn = plan.fail("sidecar_write", commit=idx, attempt=attempt)
+                if torn is not None:
+                    data_a = data_a[: max(1, int(len(data_a) * torn))]
+                ph.note(bytes=len(data_a))
+                with open(tmp_a, "wb") as f:
+                    f.write(data_a)
+                    f.flush()
+                    os.fsync(f.fileno())
+                os.replace(tmp_a, apath)
 
         shard_entries = []
         referenced = set()
@@ -776,10 +804,8 @@ class _DurableBase:
         tmp = os.path.join(self.dir, "MANIFEST.tmp")
         mpath = os.path.join(self.dir, "MANIFEST")
         payload = json.dumps(manifest)
-        t_m = time.perf_counter()
-        with tr.span("manifest_commit", commit=idx):
+        with self._phase("manifest_commit", "manifest_commit_s", commit=idx):
             plan.fail("manifest_write", commit=idx, attempt=attempt)
-            t0 = time.perf_counter()
             with open(tmp, "w") as f:
                 f.write(payload[: len(payload) // 2])
                 f.flush()
@@ -789,7 +815,6 @@ class _DurableBase:
                 plan.fail("manifest_fsync", commit=idx, attempt=attempt)
                 os.fsync(f.fileno())
             self.dstats.fsyncs += 1
-            reg.observe("fsync_latency_s", time.perf_counter() - t0)
             # retention ring: rotate MANIFEST.prev → .prev2 → … and hardlink
             # the committed manifest to MANIFEST.prev before the rename
             # replaces it, keeping ``manifest_retain`` generations (renames
@@ -815,10 +840,7 @@ class _DurableBase:
             os.replace(tmp, mpath)  # the "link" step: THE commit point
             plan.maybe_fire("before_dirsync", idx)
             plan.fail("dir_fsync", commit=idx, attempt=attempt)
-            t1 = time.perf_counter()
             _fsync_dir(self.dir)  # the "persist" step
-            reg.observe("fsync_latency_s", time.perf_counter() - t1)
-        reg.observe("manifest_commit_s", time.perf_counter() - t_m)
         self.dstats.fsyncs += 1
         reg.inc("fsyncs", 2)  # manifest file + directory entry
         # the commit point landed: install the candidate bookkeeping
@@ -884,7 +906,6 @@ class _DurableBase:
         # land on the root of ITS cut, not the manifest's newer one
         save["root"] = np.int32(root)
         save["height"] = np.int32(height)
-        t0 = time.perf_counter()
         buf = io.BytesIO()
         np.savez(buf, **save)
         data = buf.getvalue()
@@ -900,9 +921,8 @@ class _DurableBase:
             self.faults.fail("segment_fsync", commit=commit, shard=shard, attempt=attempt)
             os.fsync(f.fileno())  # the paper's clwb+sfence of new nodes
         os.replace(tmp, path)
-        dt = time.perf_counter() - t0
         nnodes = int(node_ids.size) if node_ids is not None else int(arrs["keys"].shape[0])
-        return nbytes, nnodes, dt, crc
+        return nbytes, nnodes, crc
 
     @staticmethod
     def _manifest_refs(manifest: dict) -> set:

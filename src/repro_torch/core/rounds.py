@@ -584,17 +584,20 @@ def run_scan_phase(holder, sub_sid, sub_lo, sub_hi, cap, max_retries: int = 8, g
                 if not pending.any():
                     holder._scan_retries += retried
                     scan_sp.note(retries=retried, attempts=attempt + 1)
-                    rec = _rec(holder)
-                    if rec.enabled:
-                        rec.note_scan_phase(retries=retried, attempts=attempt + 1)
-                    return buf_k, buf_v, buf_c, buf_t
+                    break
                 cur = cur[pending[sub_sid[cur]]]
-            raise ScanConflictError(
-                f"scan phase: version validation failed {max_retries} "
-                f"times on shards {np.nonzero(pending)[0].tolist()}"
-            )
+            else:
+                raise ScanConflictError(
+                    f"scan phase: version validation failed {max_retries} "
+                    f"times on shards {np.nonzero(pending)[0].tolist()}"
+                )
     finally:
         holder._scan_active -= 1
+    rec = _rec(holder)
+    if rec.enabled:
+        with tr.span("recorder.scan_phase"):
+            rec.note_scan_phase(retries=retried, attempts=attempt + 1)
+    return buf_k, buf_v, buf_c, buf_t
 
 
 def execute_scan(holder, lo, hi, cap: int = 128, max_retries: int = 8) -> ScanOutput:
@@ -607,19 +610,21 @@ def execute_scan(holder, lo, hi, cap: int = 128, max_retries: int = 8) -> ScanOu
     k_, v_, c_, t_ = scan_lanes(holder, lo, hi, cap, n_scan_ops=int(lo.size), max_retries=max_retries)
     rec = _rec(holder)
     if rec.enabled:
-        rec.round(
-            round_no=holder._rounds,
-            mode=holder.mode,
-            n_shards=holder.n_shards,
-            ops=np.full((lo.size,), OP_RANGE, np.int32),
-            keys=lo,
-            vals=hi - lo,
-            results=c_.astype(np.int64),
-            found=c_ > 0,
-            scans={i: list(zip(k_[i, : c_[i]].tolist(), v_[i, : c_[i]].tolist())) for i in range(lo.size)},
-            scan_cap=cap,
-            fused="scan",
-        )
+        with _tr(holder).span("recorder.round"):
+            rec.round(
+                round_no=holder._rounds,
+                mode=holder.mode,
+                n_shards=holder.n_shards,
+                ops=np.full((lo.size,), OP_RANGE, np.int32),
+                keys=lo,
+                vals=hi - lo,
+                results=c_.astype(np.int64),
+                found=c_ > 0,
+                scans={i: list(zip(k_[i, : c_[i]].tolist(), v_[i, : c_[i]].tolist()))
+                       for i in range(lo.size)},
+                scan_cap=cap,
+                fused="scan",
+            )
     # scan rounds never split shards (splits wait for the next update
     # round), but load rebalancing may act: read skew is what the hot-shard
     # window sees on scan traffic.
@@ -674,7 +679,6 @@ def execute_scan_delete(holder, lo, hi, cap: int = 128, max_retries: int = 8) ->
     reg = _metrics(holder)
     rec = _rec(holder)
     dev = holder.device
-    del_res = del_fnd = None
     with tr.span("round", lanes=int(lo.size), fused="scan_delete"):
         k_, v_, c_, t_ = scan_lanes(
             holder, lo, hi, cap, n_scan_ops=int(lo.size), max_retries=max_retries
@@ -705,36 +709,33 @@ def execute_scan_delete(holder, lo, hi, cap: int = 128, max_retries: int = 8) ->
                 torch.as_tensor(keys_sw, device=dev),
                 torch.zeros((n_shards, w), dtype=VAL_DTYPE, device=dev),
             )
-            if rec.enabled:
-                slot = np.empty(del_keys.size, np.int64)
-                slot[order] = slot_sorted
-                del_res = _np(res_sw)[shard, slot]
-                del_fnd = _np(fnd_sw)[shard, slot]
         if rec.enabled:
-            n_r = int(lo.size)
-            n_d = int(del_keys.size)
-            rec.round(
-                round_no=holder._rounds,
-                mode=holder.mode,
-                n_shards=holder.n_shards,
-                ops=np.concatenate(
-                    [np.full((n_r,), OP_RANGE, np.int64), np.full((n_d,), elim.OP_DELETE, np.int64)]
-                ),
-                keys=np.concatenate([lo, del_keys.astype(np.int64)]),
-                vals=np.concatenate([hi - lo, np.zeros(n_d, np.int64)]),
-                results=np.concatenate(
-                    [c_.astype(np.int64), del_res if del_res is not None else np.zeros(0, np.int64)]
-                ),
-                found=np.concatenate(
-                    [c_ > 0, del_fnd if del_fnd is not None else np.zeros(0, bool)]
-                ),
-                scans={
-                    i: list(zip(k_[i, : c_[i]].tolist(), v_[i, : c_[i]].tolist()))
-                    for i in range(n_r)
-                },
-                scan_cap=cap,
-                fused="scan_delete",
-            )
+            with tr.span("recorder.round"):
+                n_r = int(lo.size)
+                n_d = int(del_keys.size)
+                del_res, del_fnd = np.zeros(0, np.int64), np.zeros(0, bool)
+                if n_d:
+                    slot = np.empty(n_d, np.int64)
+                    slot[order] = slot_sorted
+                    del_res = _np(res_sw)[shard, slot]
+                    del_fnd = _np(fnd_sw)[shard, slot]
+                rec.round(
+                    round_no=holder._rounds,
+                    mode=holder.mode,
+                    n_shards=holder.n_shards,
+                    ops=np.concatenate([np.full((n_r,), OP_RANGE, np.int64),
+                                        np.full((n_d,), elim.OP_DELETE, np.int64)]),
+                    keys=np.concatenate([lo, del_keys.astype(np.int64)]),
+                    vals=np.concatenate([hi - lo, np.zeros(n_d, np.int64)]),
+                    results=np.concatenate([c_.astype(np.int64), del_res]),
+                    found=np.concatenate([c_ > 0, del_fnd]),
+                    scans={
+                        i: list(zip(k_[i, : c_[i]].tolist(), v_[i, : c_[i]].tolist()))
+                        for i in range(n_r)
+                    },
+                    scan_cap=cap,
+                    fused="scan_delete",
+                )
         holder._rounds += 1
         holder._maybe_split_shards()
     return ScanOutput(
@@ -768,7 +769,8 @@ def _combine_apply(holder, ops_sw, keys_sw, vals_sw):
     ks, arrival, leaf_ids, slot, res, results, found = pack
     rec = _rec(holder)
     if rec.enabled:
-        rec.note_elim(_elim_note(ops_sw, ks, arrival, res))
+        with tr.span("recorder.elim_note"):
+            rec.note_elim(_elim_note(ops_sw, ks, arrival, res))
     with tr.span("apply") as sp:
         holder.stacked, deferred = _phase_apply(
             holder.stacked, holder.cfg, ks, arrival, leaf_ids, slot, res
@@ -846,10 +848,11 @@ def _occ_round(holder, ops_sw, keys_sw, vals_sw):
             holder.subround_hook()
     rec = _rec(holder)
     if rec.enabled:
-        rec.note_occ(
-            subrounds=n_sub,
-            active_per_subround=[int((shard_max >= r).sum()) for r in range(n_sub)],
-        )
+        with tr.span("recorder.occ"):
+            rec.note_occ(
+                subrounds=n_sub,
+                active_per_subround=[int((shard_max >= r).sum()) for r in range(n_sub)],
+            )
     return torch.from_numpy(results), torch.from_numpy(found)
 
 
@@ -1109,24 +1112,25 @@ def execute_plan(holder, plan: RoundPlan) -> RoundOutput:
 
         rec = _rec(holder)
         if rec.enabled:
-            scans_d = None
-            if scan_out is not None:
-                scans_d = {
-                    int(i): list(zip(k_[j, : c_[j]].tolist(), v_[j, : c_[j]].tolist()))
-                    for j, i in enumerate(rl.tolist())
-                }
-            rec.round(
-                round_no=holder._rounds,
-                mode=holder.mode,
-                n_shards=n_shards,
-                ops=ops_np,
-                keys=keys_np,
-                vals=vals_np,
-                results=results,
-                found=found,
-                scans=scans_d,
-                scan_cap=plan.scan_cap,
-            )
+            with tr.span("recorder.round"):
+                scans_d = None
+                if scan_out is not None:
+                    scans_d = {
+                        int(i): list(zip(k_[j, : c_[j]].tolist(), v_[j, : c_[j]].tolist()))
+                        for j, i in enumerate(rl.tolist())
+                    }
+                rec.round(
+                    round_no=holder._rounds,
+                    mode=holder.mode,
+                    n_shards=n_shards,
+                    ops=ops_np,
+                    keys=keys_np,
+                    vals=vals_np,
+                    results=results,
+                    found=found,
+                    scans=scans_d,
+                    scan_cap=plan.scan_cap,
+                )
         holder._rounds += 1
         out = RoundOutput(
             results=torch.from_numpy(results),

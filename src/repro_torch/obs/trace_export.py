@@ -5,7 +5,9 @@ document, and the same document the same violations).
 The ``Tracer`` already records events in Chrome trace-event form, so
 export is a dump wrapped in the standard ``{"traceEvents": [...]}``
 envelope plus process/thread name metadata (``ph="M"``) naming track 0
-"engine" and track ``1+s`` "shard s".  The resulting file loads directly
+"engine", track ``1+s`` "shard s" and a thread's own track by the name
+in the tracer's ``tracks`` (the port's only addition: a trace without
+thread tracks gives the JAX package's document).  The resulting file loads directly
 in Perfetto (https://ui.perfetto.dev) or ``chrome://tracing``.
 
 ``validate_trace`` is the schema check the trace tests and the report
@@ -26,6 +28,7 @@ _VALID_PH = {"X", "i", "C", "M"}
 def to_chrome_trace(tracer) -> dict:
     """Build the ``{"traceEvents": [...]}`` document from a Tracer."""
     tids = sorted({int(ev.get("tid", 0)) for ev in tracer.events})
+    tracks = getattr(tracer, "tracks", {})
     meta: List[Dict] = [
         {
             "name": "process_name",
@@ -42,7 +45,7 @@ def to_chrome_trace(tracer) -> dict:
                 "ph": "M",
                 "pid": tracer.pid,
                 "tid": tid,
-                "args": {"name": "engine" if tid == 0 else f"shard {tid - 1}"},
+                "args": {"name": tracks.get(tid, "engine" if tid == 0 else f"shard {tid - 1}")},
             }
         )
     return {

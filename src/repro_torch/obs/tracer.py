@@ -10,8 +10,20 @@ not just the launch.
     returns a shared no-op context manager and ``fence`` is the identity; no
     synchronisation is ever issued and nothing is recorded.
   * **Enabled**: one ``perf_counter`` pair + one dict append per span, plus
-    the fences.  Fencing serializes host and device, so an enabled tracer is
-    a measurement tool, not a production default.
+    the fences; each span is also a ``torch.profiler.record_function``
+    range of the same name, so a profile of the same run shows it.
+    Fencing serializes host and device, so an enabled tracer is a
+    measurement tool, not a production default.
+
+Timestamps (``ts``, microseconds) are on the clock the torch profiler
+stamps its CPU events with (Unix time), so an exported trace lays over a
+profiler trace of the same run; durations come from ``perf_counter``.
+
+Tracks: 0 is the thread that made the tracer (the engine's sequencing
+thread), ``1 + s`` shard ``s``; a span opened on another thread without a
+shard goes on that thread's own track (``THREAD_TRACK0`` on), named after
+the thread less a pool's worker number (the durable commit thread's is
+``commit``).
 
 Events use the Chrome trace-event model (complete events ``ph="X"``,
 instants ``ph="i"``, counters ``ph="C"``); ``export`` writes them through
@@ -20,6 +32,8 @@ process and thread names Perfetto shows.
 """
 from __future__ import annotations
 
+import re
+import threading
 import time
 from typing import Dict, List, Optional
 
@@ -27,7 +41,15 @@ import torch
 
 from repro_torch.obs.trace_export import write_chrome_trace
 
-__all__ = ["Tracer", "NULL_TRACER"]
+__all__ = ["Tracer", "NULL_TRACER", "THREAD_TRACK0"]
+
+# first track of the threads other than the engine's (shards take 1 + s)
+THREAD_TRACK0 = 1 << 20
+
+
+def _now_us() -> float:
+    """Now on the profiler's CPU clock (Unix time), in microseconds."""
+    return time.time_ns() / 1e3
 
 
 def _has_cuda_tensor(x) -> bool:
@@ -62,7 +84,7 @@ _NULL_SPAN = _NullSpan()
 
 
 class _Span:
-    __slots__ = ("_tracer", "name", "shard", "args", "_t0")
+    __slots__ = ("_tracer", "name", "shard", "args", "_t0", "_ts", "_rf")
 
     def __init__(self, tracer: "Tracer", name: str, shard, args: dict):
         self._tracer = tracer
@@ -71,6 +93,9 @@ class _Span:
         self.args = args
 
     def __enter__(self):
+        self._rf = torch.profiler.record_function(self.name)
+        self._rf.__enter__()
+        self._ts = _now_us()
         self._t0 = time.perf_counter()
         return self
 
@@ -86,15 +111,16 @@ class _Span:
 
     def __exit__(self, *exc):
         t1 = time.perf_counter()
+        self._rf.__exit__(*exc)
         tr = self._tracer
         tr.events.append(
             {
                 "name": self.name,
                 "ph": "X",
-                "ts": (self._t0 - tr._epoch) * 1e6,
+                "ts": self._ts,
                 "dur": (t1 - self._t0) * 1e6,
                 "pid": tr.pid,
-                "tid": 0 if self.shard is None else 1 + int(self.shard),
+                "tid": tr._tid(self.shard),
                 "args": self.args,
             }
         )
@@ -103,13 +129,29 @@ class _Span:
 
 class Tracer:
     """Span/instant/counter recorder in Chrome trace-event form.  Track 0 is
-    the engine's sequencing thread; track ``1 + s`` is shard ``s``."""
+    the engine's sequencing thread; track ``1 + s`` is shard ``s``; other
+    threads get tracks of their own, named in ``tracks``."""
 
     def __init__(self, enabled: bool = True, *, pid: int = 0):
         self.enabled = enabled
         self.pid = pid
         self.events: List[Dict] = []
-        self._epoch = time.perf_counter()
+        self.tracks: Dict[int, str] = {}  # thread track -> its name
+        self._engine = threading.get_ident()
+        self._threads: Dict[int, int] = {}  # thread ident -> its track
+
+    def _tid(self, shard) -> int:
+        """The track of an event of ``shard`` opened on this thread."""
+        if shard is not None:
+            return 1 + int(shard)
+        ident = threading.get_ident()
+        if ident == self._engine:
+            return 0
+        tid = self._threads.get(ident)
+        if tid is None:
+            tid = self._threads[ident] = THREAD_TRACK0 + len(self._threads)
+            self.tracks[tid] = re.sub(r"_\d+$", "", threading.current_thread().name)
+        return tid
 
     def span(self, name: str, *, shard: Optional[int] = None, **args):
         """Context manager timing one phase: ``with tracer.span("apply") as
@@ -127,9 +169,9 @@ class Tracer:
                 "name": name,
                 "ph": "i",
                 "s": "t",
-                "ts": (time.perf_counter() - self._epoch) * 1e6,
+                "ts": _now_us(),
                 "pid": self.pid,
-                "tid": 0 if shard is None else 1 + int(shard),
+                "tid": self._tid(shard),
                 "args": args,
             }
         )
@@ -142,9 +184,9 @@ class Tracer:
             {
                 "name": name,
                 "ph": "C",
-                "ts": (time.perf_counter() - self._epoch) * 1e6,
+                "ts": _now_us(),
                 "pid": self.pid,
-                "tid": 0 if shard is None else 1 + int(shard),
+                "tid": self._tid(shard),
                 "args": {"value": float(value)},
             }
         )
@@ -159,9 +201,8 @@ class Tracer:
                 self.instant(name, shard=s, lanes=int(n), **extra)
 
     def clear(self):
-        """Drop the recorded events and restart the clock at 0."""
+        """Drop the recorded events (the clock is the profiler's, and runs on)."""
         self.events.clear()
-        self._epoch = time.perf_counter()
 
     def export(self, path: str) -> str:
         """Write the Chrome trace-event JSON file (Perfetto-loadable)."""

@@ -34,7 +34,9 @@ KEY_RANGE = 4096
 REPORT_FIELDS = ("rounds", "lanes", "eliminated", "state", "prefix_states")
 # spans only the port's forest emits (its repartition's sweep and re-insert,
 # ``core/forest.py``); a tree round emits neither, in either package
-PORT_ONLY_SPANS = {"shard_sweep", "shard_reinsert"}
+# the port's own spans: the forest's restack phases and the flight recorder's calls
+PORT_ONLY_SPANS = {"shard_sweep", "shard_reinsert", "recorder.elim_note", "recorder.round",
+                   "recorder.scan_phase", "recorder.occ"}
 
 
 @pytest.fixture(scope="module", autouse=True)
