@@ -213,6 +213,34 @@ def _to_host(t: torch.Tensor) -> np.ndarray:
     return t.detach().to("cpu", copy=True).numpy()
 
 
+# the most buffers one ``writev`` takes (Linux's UIO_MAXIOV)
+_IOV_MAX = 1024
+
+
+def _writev_all(fd: int, pieces: List[bytes]) -> None:
+    """Write ``pieces`` to ``fd`` in order, with as few ``writev`` calls as
+    the kernel takes (a short write resumes mid-piece)."""
+    pieces, i = list(pieces), 0
+    while i < len(pieces):
+        n = os.writev(fd, pieces[i:i + _IOV_MAX])
+        while i < len(pieces) and n >= len(pieces[i]):
+            n -= len(pieces[i])
+            i += 1
+        if n:
+            pieces[i] = memoryview(pieces[i])[n:]
+
+
+def _cut(pieces: List[bytes], n: int) -> List[bytes]:
+    """The first ``n`` bytes of ``pieces`` joined, as pieces."""
+    out = []
+    for piece in pieces:
+        if n <= 0:
+            break
+        out.append(piece[:n])
+        n -= len(piece)
+    return out
+
+
 class _Phase:
     """One phase of a commit: its span, and on a clean exit one observation
     of its histogram (its seconds plus ``carry``, an earlier part's)."""
@@ -544,7 +572,9 @@ class _DurableBase:
                 # rounds run while an async commit is in flight: capture the
                 # ring now, at the group boundary.
                 with self._phase("sidecar.encode") as ph:
-                    cap["sidecar"] = (int(self._holder()._rounds), rec.dump_records())
+                    lines, encoded = rec.dump_lines()
+                    ph.note(records=len(lines), encoded=encoded)
+                    cap["sidecar"] = (int(self._holder()._rounds), lines)
                 cap["sidecar_encode_s"] = ph.seconds
             if self.commit_async and not self._degraded:
                 if self._commit_pool is None:
@@ -747,24 +777,30 @@ class _DurableBase:
         # the recovered sidecar always matches the committed round prefix.
         audit_ref = getattr(self, "_last_audit", None)
         if cap["sidecar"] is not None:
-            rounds, records = cap["sidecar"]
+            rounds, lines = cap["sidecar"]
             audit_ref = f"audit_{idx:08d}.jsonl"
             apath = os.path.join(self.dir, audit_ref)
             tmp_a = apath + ".tmp"
             with self._phase("sidecar.write", "commit_sidecar_s", cap["sidecar_encode_s"],
-                             commit=idx, records=len(records)) as ph:
+                             commit=idx, records=len(lines)) as ph:
                 header = json.dumps({"kind": "sidecar", "commit_idx": idx,
                                      "backend": self.backend, "rounds": rounds})
-                data_a = ("\n".join([header, *records]) + "\n").encode()
-                file_crcs[audit_ref] = zlib.crc32(data_a) & 0xFFFFFFFF
+                # the file is the header's line, then the records' lines
+                pieces = [(header + "\n").encode(), *lines]
+                crc = 0
+                for piece in pieces:
+                    crc = zlib.crc32(piece, crc)
+                file_crcs[audit_ref] = crc & 0xFFFFFFFF
                 torn = plan.fail("sidecar_write", commit=idx, attempt=attempt)
                 if torn is not None:
-                    data_a = data_a[: max(1, int(len(data_a) * torn))]
-                ph.note(bytes=len(data_a))
-                with open(tmp_a, "wb") as f:
-                    f.write(data_a)
-                    f.flush()
-                    os.fsync(f.fileno())
+                    pieces = _cut(pieces, max(1, int(sum(map(len, pieces)) * torn)))
+                ph.note(bytes=sum(map(len, pieces)))
+                fd = os.open(tmp_a, os.O_WRONLY | os.O_CREAT | os.O_TRUNC, 0o666)
+                try:
+                    _writev_all(fd, pieces)
+                    os.fsync(fd)
+                finally:
+                    os.close(fd)
                 os.replace(tmp_a, apath)
 
         shard_entries = []

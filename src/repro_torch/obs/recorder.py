@@ -18,6 +18,11 @@ Overhead contract:
     the host, so recording launches no device work.
   * **Enabled**: one bounded ``deque`` append of plain-python lists per
     round (the ring drops the oldest record at capacity).
+  * **Dumping** (``dump_lines``, the durable commit's sidecar): a record's
+    JSON line is encoded at its first dump and kept while the record stays
+    in the ring, so a commit encodes only the records pushed since the
+    previous one.  Recording itself never encodes; records are not changed
+    after they are pushed.
 
 Record schema (one JSON object per line in the exported ``.jsonl``; the
 field-by-field contract is ``src/repro/obs/README.md``'s):
@@ -47,7 +52,7 @@ from __future__ import annotations
 
 import json
 from collections import deque
-from typing import Deque, List, Optional
+from typing import Deque, Dict, List, Optional, Tuple
 
 import numpy as np
 
@@ -83,6 +88,9 @@ class Recorder:
         self._pending_elim: List[dict] = []
         self._pending_occ: Optional[dict] = None
         self._pending_scan: Optional[dict] = None
+        # id(record) -> (record, its encoded line) for the last dump's
+        # records; holding the record keeps its id from being reused
+        self._lines: Dict[int, Tuple[dict, bytes]] = {}
 
     # -- recording -------------------------------------------------------------
 
@@ -218,6 +226,7 @@ class Recorder:
 
     def clear(self) -> None:
         self._records.clear()
+        self._lines = {}
 
     def export(self, path: str) -> str:
         """Write one JSON object per line (``.jsonl``), oldest first."""
@@ -226,9 +235,28 @@ class Recorder:
                 f.write(json.dumps(rec) + "\n")
         return path
 
+    def dump_lines(self) -> Tuple[List[bytes], int]:
+        """The ring as JSONL, oldest first: one ``json.dumps(rec) + "\\n"``
+        in bytes a record, and how many of them this call encoded (the
+        others were kept from an earlier dump).  The kept lines follow the
+        ring: those of records it evicted go at the next dump, all of them
+        at ``clear()``."""
+        kept, cache, lines, encoded = self._lines, {}, [], 0
+        for rec in list(self._records):  # one C-level copy: a push may race
+            hit = kept.get(id(rec))
+            if hit is None:
+                line = (json.dumps(rec) + "\n").encode()
+                encoded += 1
+            else:
+                line = hit[1]
+            cache[id(rec)] = (rec, line)
+            lines.append(line)
+        self._lines = cache
+        return lines, encoded
+
     def dump_records(self) -> List[str]:
-        """JSONL lines without touching the filesystem (sidecar payload)."""
-        return [json.dumps(rec) for rec in self._records]
+        """``dump_lines`` as strings without their newlines."""
+        return [line[:-1].decode() for line in self.dump_lines()[0]]
 
     @staticmethod
     def load(path: str) -> List[dict]:

@@ -1,13 +1,17 @@
 """The flight recorder's spans in the round engine, the durable commit's
 phase spans and histograms, and the tracer's profiler ranges, clock and
 thread tracks, on the CPU."""
+import json
+import os
 import statistics
 
 import numpy as np
 import pytest
 import torch
 
-from repro_torch.core import OP_DELETE, OP_FIND, OP_INSERT, OP_RANGE, DurableABTree, TreeConfig
+from repro_torch.core import durable
+from repro_torch.core import (OP_DELETE, OP_FIND, OP_INSERT, OP_RANGE, DurableABTree, FaultPlan,
+                              FaultSpec, TreeConfig, recover)
 from repro_torch.obs import report, trace_export
 from repro_torch.obs.recorder import Recorder
 from repro_torch.obs.tracer import THREAD_TRACK0, Tracer
@@ -51,6 +55,28 @@ def _run(directory, tracer=None, recorder=True, **kw):
     outs = [t.apply_round(*r, scan_cap=16) for r in _rounds()]
     t.close()
     return t, outs
+
+
+def _spy_dumps(monkeypatch):
+    """Each sidecar dump's ring, encoded afresh: ``(seqs, plain lines)``."""
+    seen = []
+    real = Recorder.dump_lines
+
+    def dump_lines(self):
+        recs = self.records()
+        seen.append(([r["seq"] for r in recs], [json.dumps(r) for r in recs]))
+        return real(self)
+
+    monkeypatch.setattr(Recorder, "dump_lines", dump_lines)
+    return seen
+
+
+def _sidecar(directory):
+    """The committed sidecar's name and bytes, and the commit's index."""
+    with open(os.path.join(directory, "MANIFEST")) as f:
+        man = json.load(f)
+    with open(os.path.join(directory, man["audit"]), "rb") as f:
+        return man["audit"], f.read(), man["commit"]
 
 
 def _spans(tracer, name):
@@ -194,3 +220,67 @@ def test_tracer_off_calls_no_profiler_range_or_sync(tmp_path, monkeypatch):
     assert calls == {"record_function": 0, "synchronize": 0}
     _run(tmp_path / "on", Tracer())
     assert calls["record_function"] > 0 and calls["synchronize"] == 0
+
+
+def test_sidecar_encodes_only_the_records_new_since_the_last_commit(tmp_path, monkeypatch):
+    seen = _spy_dumps(monkeypatch)
+    tr = Tracer()
+    t = DurableABTree(str(tmp_path), CFG, device="cpu")
+    t.tracer = tr
+    for r in _rounds():
+        t.apply_round(*r, scan_cap=16)
+        # the file is the header, then the ring at capture encoded afresh
+        _, data, idx = _sidecar(tmp_path)
+        header = json.dumps({"kind": "sidecar", "commit_idx": idx, "backend": "tree",
+                             "rounds": t.tree._rounds})
+        assert data == "".join(x + "\n" for x in [header, *seen[-1][1]]).encode()
+    t.close()
+    enc, wr = _spans(tr, "sidecar.encode"), _spans(tr, "sidecar.write")
+    assert len(enc) == len(wr) == len(seen) - 1 == 4  # the first commit ran untraced
+    for (prev, _), (seqs, _), e, w in zip(seen[:-1], seen[1:], enc, wr):
+        new = [q for q in seqs if q > max(prev, default=-1)]
+        assert new and e["args"]["encoded"] == len(new) <= 3
+        assert e["args"]["records"] == w["args"]["records"] == len(seqs)
+
+
+def test_torn_sidecar_cuts_at_the_plain_encodings_byte(tmp_path, monkeypatch):
+    seen = _spy_dumps(monkeypatch)
+    plan = FaultPlan(specs=[FaultSpec(site="sidecar_write", kind="torn", commits=(3, 4),
+                                      torn_frac=0.37)])
+    t = DurableABTree(str(tmp_path), CFG, device="cpu", faults=plan)
+    for r in _rounds(3):
+        t.apply_round(*r, scan_cap=16)
+    name, data, idx = _sidecar(tmp_path)
+    assert idx == 3 and plan.injected == 1
+    header = json.dumps({"kind": "sidecar", "commit_idx": 3, "backend": "tree", "rounds": 3})
+    whole = ("\n".join([header, *seen[-1][1]]) + "\n").encode()
+    assert data == whole[: max(1, int(len(whole) * 0.37))]
+    t.close()
+    r = recover(str(tmp_path), device="cpu")
+    assert r._quarantined == [f"quarantine/{name}"] and r.forensics_records() == []
+    assert os.path.exists(os.path.join(tmp_path, "quarantine", name))
+    assert r.tree.items() == t.tree.items()
+
+
+def test_sidecar_write_resumes_after_short_writes(tmp_path, monkeypatch):
+    """A ``writev`` that takes at most two buffers and 1,000 bytes a call
+    still leaves the whole file."""
+    seen = _spy_dumps(monkeypatch)
+    real = os.writev
+    calls = []
+
+    def writev(fd, buffers):
+        assert len(buffers) <= 2
+        calls.append(len(buffers))
+        return real(fd, [b"".join(buffers)[:1000]])
+
+    monkeypatch.setattr(durable, "_IOV_MAX", 2)
+    monkeypatch.setattr(os, "writev", writev)
+    t = DurableABTree(str(tmp_path), CFG, device="cpu")
+    for r in _rounds(2):
+        t.apply_round(*r, scan_cap=16)
+    t.close()
+    _, data, idx = _sidecar(tmp_path)
+    header = json.dumps({"kind": "sidecar", "commit_idx": idx, "backend": "tree", "rounds": 2})
+    assert data == ("\n".join([header, *seen[-1][1]]) + "\n").encode()
+    assert len(data) > 3000 and len(calls) > len(data) // 1000
